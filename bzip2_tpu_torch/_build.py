@@ -1,0 +1,137 @@
+"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface, which ctypes loads.  The library
+goes into ``build/bzip2_tpu_torch/`` beside the package and is keyed by a
+hash of the sources and flags, so an edited kernel always rebuilds.  A build
+failure raises: there is no fallback for a CUDA tensor.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and
+counts the successful launches (``launches``), so a run can show that its
+main path went through each kernel.
+"""
+from __future__ import annotations
+
+import ctypes as ct
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "bzip2_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libbz2t_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if the keyed library is missing; return its path."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
+                           f"{r.stdout}\n{r.stderr}")
+    os.replace(tmp, so)     # atomic: concurrent builders agree on one file
+    return so
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ct.CDLL(build())
+            lib.bz2t_error_string.restype = ct.c_char_p
+            lib.bz2t_error_string.argtypes = [ct.c_int]
+            _lib = lib
+        return _lib
+
+
+#: every kernel of the package by name (chip_smoke.py resets and reads them)
+KERNELS: dict[str, "Kernel"] = {}
+
+
+class Kernel:
+    """One C entry point of the kernel library and its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        KERNELS[name] = self
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            lib = _load()
+            fn = getattr(lib, self.symbol)
+            fn.restype = ct.c_int
+            fn.argtypes = self.argtypes
+            self._fn = fn
+        rc = self._fn(*args)
+        if rc != 0:
+            msg = _load().bz2t_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
+        self.launches += 1
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def ptr(t) -> ct.c_void_p:
+    return ct.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ct.c_void_p:
+    import torch
+    return ct.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check(t, name: str, dtype, ndim: int) -> None:
+    """Validate a tensor handed to a kernel: CUDA, dtype, rank, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")

@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (bzip2_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit:
+  1. print the toolchain and the card; fail without CUDA;
+  2. build the CUDA kernels from bzip2_tpu_torch/csrc/;
+  3. hold each kernel against its plain PyTorch version at the main path's
+     shapes (exact equality) and time both with CUDA events;
+  4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress:
+     the stream must equal bz2.compress(data, 9) and round-trip through
+     bz2.decompress, every block must go to the device and every kernel
+     must have been launched by that run;
+  5. one more compression under torch.profiler, with the host RLE1 split
+     timed apart: prints the device's busy share, the ops that take its
+     time and the peak device memory.
+The last line is a JSON object naming the device.  The script imports the
+port (bzip2_tpu_torch), torch, numpy and the standard library only.
+"""
+from __future__ import annotations
+
+import bz2
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+LEVEL = 9
+CORPUS_BYTES = 16 << 20
+SEED = 20261016
+REPLACES = {
+    "sort_pairs": "bzip2_tpu/ops/sort_pallas.py:76",
+    "mtf_tile_last": "bzip2_tpu/ops/mtf_pallas.py:34",
+    "mtf_rank": "bzip2_tpu/ops/mtf_pallas.py:44",
+    "group_hist": "bzip2_tpu/ops/mtf_pallas.py:77",
+}
+SOURCES = {
+    "sort_pairs": "bzip2_tpu_torch/csrc/sort_pairs.cu",
+    "mtf_tile_last": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
+    "mtf_rank": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
+    "group_hist": "bzip2_tpu_torch/csrc/group_hist.cu",
+}
+
+
+def _run(cmd: list[str]) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def card_line() -> str:
+    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+
+
+def corpus(size: int, seed: int) -> bytes:
+    """De-periodized golden mix: copies of the golden samples 1 and 2, the
+    lowercase letters of each copy rotated by an offset drawn from a seeded
+    permutation of the 26 rotations, so no block holds two equal copies."""
+    gold = os.path.join(HERE, "tests", "golden")
+    src = np.frombuffer(b"".join(
+        open(os.path.join(gold, f"sample{i}.ref"), "rb").read()
+        for i in (1, 2)), np.uint8)
+    lower = (src >= 97) & (src <= 122)
+    rots = np.random.default_rng(seed).permutation(26)
+    parts = []
+    for i in range(-(-size // src.size)):
+        r = int(rots[i % 26])
+        parts.append(np.where(lower, (src - 97 + r) % 26 + 97, src)
+                     .astype(np.uint8))
+    return np.concatenate(parts)[:size].tobytes()
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of fn over reps launches, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def compare(torch, name, kern, plain, args, reps=5):
+    """Run kernel and plain version on the same inputs; demand equality."""
+    got = kern(*args)
+    exp = plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    exp = exp if isinstance(exp, tuple) else (exp,)
+    err = 0
+    for g, e in zip(got, exp):
+        if g.shape != e.shape or g.dtype != e.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                                 f"{e.shape}/{e.dtype}")
+        err = max(err, int((g.to(torch.int64) - e.to(torch.int64))
+                           .abs().max().item()))
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from plain "
+                             f"(max abs err {err})")
+    ms = cuda_ms(torch, lambda: kern(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: plain(*args), reps)
+    shape = "x".join(str(s) for s in args[0].shape)
+    print(f"  {name:14s} {shape:>14s}  kernel {ms:9.3f} ms   "
+          f"plain {plain_ms:9.3f} ms   max_abs_err {err}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def profile_slice(torch, data: bytes, expect: bytes) -> None:
+    """Phase 5: the host RLE1 split alone, then one compression under
+    torch.profiler.  The device's busy share is the union of its kernel and
+    copy intervals over the profiled wall."""
+    import bzip2_tpu_torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bzip2_tpu_torch import engine
+    t0 = time.perf_counter()
+    engine.split_blocks(data, LEVEL)
+    split = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = bzip2_tpu_torch.compress(data, LEVEL)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if out != expect:
+        raise AssertionError("profiled stream differs from bz2.compress")
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    busy /= 1e3
+    total = sum(ms for ms, _ in by_name.values())
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    print(f"phase 5: host rle1 split {split:.4f} s; profiled wall "
+          f"{wall:.1f} ms; device time {total:.1f} ms, busy {busy:.1f} ms "
+          f"= {100 * busy / wall:.1f}% of the wall; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}%  {n:5d}x  {name[:90]}",
+              flush=True)
+
+
+def main() -> int:
+    sys.path.insert(0, HERE)
+    # ---- phase 1: toolchain and card
+    import torch
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}", flush=True)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from bzip2_tpu_torch import _build
+    print(_run([_build._nvcc(), "--version"]).splitlines()[-1])
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    torch.cuda.set_device(0)
+
+    # the engine's native heap builder: plain build (the PGO flow runs a
+    # training subprocess of its own); Engine() raises if it does not build
+    os.environ.setdefault("BZ2TPU_NO_PGO", "1")
+
+    # ---- phase 2: build the kernels
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build._load()
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
+          f"{os.path.relpath(so, HERE)}", flush=True)
+
+    # ---- phase 3: each kernel against its plain version
+    from bzip2_tpu_torch import engine
+    from bzip2_tpu_torch.engine import _block_pad_size, stage_from_numpy
+    from bzip2_tpu_torch.ops import mtf_kernel as mk
+    from bzip2_tpu_torch.ops import sort_kernel as sk
+    from bzip2_tpu_torch.ops.bwt import bwt_batched
+    from bzip2_tpu_torch.ops.mtf import mtf_rle2_batched
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    results = {}
+    print("phase 3: kernel vs plain (exact)", flush=True)
+
+    def pairs(B, N, inf_from=None):
+        a = rng.integers(0, 1 << 31, (B, N), dtype=np.int64).astype(np.int32)
+        b = ((rng.integers(0, 512, (B, N)).astype(np.int32) << 20)
+             | np.arange(N, dtype=np.int32)[None])
+        if inf_from is not None:
+            a[:, inf_from:] = 0x7FFFFFFF
+        return (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+
+    results["sort_pairs"] = compare(torch, "sort_pairs", sk.sort_pairs,
+                                    sk.sort_pairs_plain, pairs(2, 1 << 20))
+    compare(torch, "sort_pairs", sk.sort_pairs, sk.sort_pairs_plain,
+            pairs(2, 4096))
+    compare(torch, "sort_pairs INF", sk.sort_pairs, sk.sort_pairs_plain,
+            pairs(2, 1 << 18, inf_from=100_000))
+    for n in (128, 256, 8192, 1 << 16):   # the tail ladder's widths
+        compare(torch, "sort_pairs", sk.sort_pairs, sk.sort_pairs_plain,
+                pairs(3, n), reps=2)
+
+    data = corpus(CORPUS_BYTES, SEED)
+    blocks = engine.split_blocks(data, LEVEL)
+    N = _block_pad_size(LEVEL)
+    arr, ns, uses, _ = engine.batch_arrays(blocks[:2], 2, N)
+    bt, nt, ut = stage_from_numpy((arr, ns, uses), dev)
+    last, _, _ = bwt_batched(bt, nt)
+    # the MTF input exactly as mtf_rle2_batched builds it
+    valid = torch.arange(N, device=dev)[None, :] < nt[:, None]
+    ui = ut.to(torch.int32)
+    remap = torch.cumsum(ui, 1, dtype=torch.int32) - ui
+    seq = torch.where(valid, torch.gather(remap, 1, last.to(torch.int64)), 0)
+    seqm = torch.where(valid, seq, mk.PAD_SYM).reshape(-1, mk.PTILE).contiguous()
+    results["mtf_tile_last"] = compare(torch, "mtf_tile_last", mk.tile_last,
+                                       mk.tile_last_plain, (seqm,))
+    lx = mk.carries(mk.tile_last(seqm), 2).contiguous()
+    results["mtf_rank"] = compare(torch, "mtf_rank", mk.rank, mk.rank_plain,
+                                  (seqm, lx), reps=2)
+    mtfv, n_mtf, _ = mtf_rle2_batched(last, nt, ut)
+    results["group_hist"] = compare(torch, "group_hist", mk.group_hist,
+                                    mk.group_hist_plain,
+                                    (mtfv.contiguous(), n_mtf.contiguous()))
+    del last, seq, seqm, lx, mtfv, n_mtf
+
+    # ---- phase 4: the slice through the port's entry point
+    import bzip2_tpu_torch
+    expect = bz2.compress(data, LEVEL)
+    # one untimed pass pays the first-use costs at the batch shapes
+    # (allocator growth, cuBLAS set-up); the timed pass below is the result
+    if bzip2_tpu_torch.compress(data, LEVEL) != expect:
+        raise AssertionError("warm-up stream differs from bz2.compress")
+    engine.reset_telemetry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = bzip2_tpu_torch.compress(data, LEVEL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    share = dict(engine.SHARE)
+    if out != expect:
+        raise AssertionError("stream differs from bz2.compress(data, 9)")
+    if bz2.decompress(out) != data:
+        raise AssertionError("stream does not round-trip")
+    if share != {"blocks": len(blocks), "dev_blocks": len(blocks)}:
+        raise AssertionError(f"device encoded {share['dev_blocks']} of "
+                             f"{share['blocks']} blocks handed to the engine "
+                             f"({len(blocks)} expected)")
+    missing = [k for k in REPLACES if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the main path: {missing}")
+    mb = len(data) / 1e6
+    print(f"phase 4: {mb:.3f} MB at -{LEVEL}, {len(blocks)} blocks, all on "
+          f"the device, bit-exact vs bz2 and round-tripped", flush=True)
+    print(f"  wall {wall:.3f} s = {mb / wall:.3f} MB/s  (ratio "
+          f"{len(out) / len(data):.4f}) on {card}", flush=True)
+    print("  stage walls: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in engine.STAGE_WALL.items()), flush=True)
+    print("  launches: " + json.dumps(launches), flush=True)
+    profile_slice(torch, data, expect)
+
+    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
+                "replaces": REPLACES[k], "launches": launches[k],
+                **results[k]} for k in REPLACES]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
