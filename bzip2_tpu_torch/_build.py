@@ -117,7 +117,8 @@ def reset_launches() -> None:
 
 
 def ptr(t) -> ct.c_void_p:
-    return ct.c_void_p(t.data_ptr())
+    """A tensor's device address; NULL for None."""
+    return ct.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_of(t) -> ct.c_void_p:

@@ -14,7 +14,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      must have been launched by that run;
   5. one more compression under torch.profiler, with the host RLE1 split
      timed apart: prints the device's busy share, the ops that take its
-     time and the peak device memory.
+     time, each hand kernel's device time and the peak device memory.
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
 """
@@ -44,6 +44,13 @@ SOURCES = {
     "mtf_tile_last": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
     "mtf_rank": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
     "group_hist": "bzip2_tpu_torch/csrc/group_hist.cu",
+}
+# the CUDA kernels each wrapper launches, as the profiler names them
+SYMBOLS = {
+    "sort_pairs": ("sort_tile_kernel", "sort_merge_kernel"),
+    "mtf_tile_last": ("tile_last_kernel",),
+    "mtf_rank": ("rank_kernel",),
+    "group_hist": ("group_hist_kernel",),
 }
 
 
@@ -159,6 +166,17 @@ def profile_slice(torch, data: bytes, expect: bytes) -> None:
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}%  {n:5d}x  {name[:90]}",
               flush=True)
+    for kern, syms in SYMBOLS.items():
+        parts = {s: [0.0, 0] for s in syms}
+        for name, (ms, n) in by_name.items():
+            for s in syms:
+                if f"{s}(" in name:
+                    parts[s][0] += ms
+                    parts[s][1] += n
+        print(f"  hand kernel {kern}: {sum(p[0] for p in parts.values()):.3f} "
+              "ms device time (" + ", ".join(
+                  f"{s} {ms:.3f} ms {n}x" for s, (ms, n) in parts.items())
+              + ")", flush=True)
 
 
 def main() -> int:
@@ -192,7 +210,7 @@ def main() -> int:
     from bzip2_tpu_torch.engine import _block_pad_size, stage_from_numpy
     from bzip2_tpu_torch.ops import mtf_kernel as mk
     from bzip2_tpu_torch.ops import sort_kernel as sk
-    from bzip2_tpu_torch.ops.bwt import bwt_batched
+    from bzip2_tpu_torch.ops.bwt import _tail_ladder, bwt_batched
     from bzip2_tpu_torch.ops.mtf import mtf_rle2_batched
 
     dev = torch.device("cuda")
@@ -200,23 +218,36 @@ def main() -> int:
     results = {}
     print("phase 3: kernel vs plain (exact)", flush=True)
 
-    def pairs(B, N, inf_from=None):
-        a = rng.integers(0, 1 << 31, (B, N), dtype=np.int64).astype(np.int32)
-        b = ((rng.integers(0, 512, (B, N)).astype(np.int32) << 20)
-             | np.arange(N, dtype=np.int32)[None])
+    def pairs(B, N, inf_from=None, span=None):
+        """Distinct pairs (a position in b's low bits), or with span, pairs
+        drawn from span x span values (many equal pairs)."""
+        if span:
+            a, b = (rng.integers(0, span, (B, N)).astype(np.int32)
+                    for _ in range(2))
+        else:
+            a = rng.integers(0, 1 << 31, (B, N), dtype=np.int64).astype(np.int32)
+            b = ((rng.integers(0, 512, (B, N)).astype(np.int32) << 20)
+                 | np.arange(N, dtype=np.int32)[None])
         if inf_from is not None:
             a[:, inf_from:] = 0x7FFFFFFF
         return (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
 
-    results["sort_pairs"] = compare(torch, "sort_pairs", sk.sort_pairs,
-                                    sk.sort_pairs_plain, pairs(2, 1 << 20))
-    compare(torch, "sort_pairs", sk.sort_pairs, sk.sort_pairs_plain,
-            pairs(2, 4096))
-    compare(torch, "sort_pairs INF", sk.sort_pairs, sk.sort_pairs_plain,
-            pairs(2, 1 << 18, inf_from=100_000))
-    for n in (128, 256, 8192, 1 << 16):   # the tail ladder's widths
-        compare(torch, "sort_pairs", sk.sort_pairs, sk.sort_pairs_plain,
-                pairs(3, n), reps=2)
+    def sort_case(name, args, reps=5):
+        return compare(torch, name, sk.sort_pairs, sk.sort_pairs_plain, args,
+                       reps)
+
+    # the main path's shape: a -9 batch of 13 blocks of up to 900,000
+    # rotations padded to 2^20 with INF-keyed lanes
+    results["sort_pairs"] = sort_case("sort_pairs INF",
+                                      pairs(13, 1 << 20, inf_from=900_000))
+    sort_case("sort_pairs dup", pairs(13, 1 << 20, span=4), reps=2)
+    for n in _tail_ladder(1 << 20):   # the tail stages' compaction widths
+        sort_case("sort_pairs", pairs(13, n), reps=2)
+    sort_case("sort_pairs", pairs(2, 1 << 20))
+    sort_case("sort_pairs", pairs(2, 4096))
+    sort_case("sort_pairs INF", pairs(2, 1 << 18, inf_from=100_000))
+    for n in (128, 256, 8192, 1 << 16):
+        sort_case("sort_pairs", pairs(3, n), reps=2)
 
     data = corpus(CORPUS_BYTES, SEED)
     blocks = engine.split_blocks(data, LEVEL)

@@ -64,18 +64,51 @@ def test_kernels_registered_with_counters():
 
 # ------------------------------------------------------ kernels (card) --
 
+SORT_PATTERNS = ["random", "inf_tail", "equal_a", "two_values", "all_equal",
+                 "sorted", "reversed", "extremes"]
+
+
+def _sort_case(rng, rows, N, pattern, dev):
+    """Inputs of one sort_pairs case, on the card."""
+    a, b = _pairs(rng, rows, N)
+    if pattern == "inf_tail":
+        # the BWT's pad lanes: (INF, bit29 | pos) from the -9 block length on
+        start = 900_000 if N > 900_000 else N // 2
+        a[:, start:] = INF
+        b[:, start:] = (1 << 29) | np.arange(start, N, dtype=np.int32)
+    elif pattern == "equal_a":
+        a[:] = 5
+        b = np.stack([rng.permutation(N).astype(np.int32) for _ in range(rows)])
+    elif pattern == "two_values":
+        a = rng.integers(0, 2, (rows, N)).astype(np.int32)
+        b = rng.integers(0, 2, (rows, N)).astype(np.int32)
+    elif pattern == "all_equal":
+        a = np.ones((rows, N), np.int32)
+        b = np.ones((rows, N), np.int32)
+    elif pattern == "extremes":
+        ext = np.array([-(1 << 31), -1, 0, 1, INF], np.int32)
+        a = rng.choice(ext, (rows, N))
+        b = rng.choice(ext, (rows, N))
+    at = torch.from_numpy(a).to(dev)
+    bt = torch.from_numpy(b).to(dev)
+    if pattern in ("sorted", "reversed"):
+        at, bt = sk.sort_pairs_plain(at, bt)
+        if pattern == "reversed":
+            at, bt = at.flip(1).contiguous(), bt.flip(1).contiguous()
+    return at, bt
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [128, 4096, 8192, 1 << 16, 1 << 20])
-def test_sort_pairs_kernel_matches_plain(cuda_device, N):
-    rng = np.random.default_rng(N)
-    a, b = _pairs(rng, 3, N)
-    a[:, N // 2:] = INF
-    at = torch.from_numpy(a).to(cuda_device)
-    bt = torch.from_numpy(b).to(cuda_device)
+@pytest.mark.parametrize("pattern", SORT_PATTERNS)
+@pytest.mark.parametrize("N", [128, 4096, 16384, 1 << 16, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("rows", [1, 3, 13])
+def test_sort_pairs_kernel_matches_plain(cuda_device, rows, N, pattern):
+    rng = np.random.default_rng([rows, N, SORT_PATTERNS.index(pattern)])
+    at, bt = _sort_case(rng, rows, N, pattern, cuda_device)
     before = sk.KERNEL.launches
     ka, kb = sk.sort_pairs(at, bt)
-    pa, pb = sk.sort_pairs_plain(at, bt)
     assert sk.KERNEL.launches == before + 1
+    pa, pb = sk.sort_pairs_plain(at, bt)
     assert torch.equal(ka, pa) and torch.equal(kb, pb)
 
 

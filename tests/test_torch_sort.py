@@ -63,3 +63,25 @@ def test_sort_pairs_rejects_bad_width(N):
     with pytest.raises(ValueError):
         sk.sort_pairs(t, t)
 
+
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 21)])
+def test_sort_pairs_launch_plan(n):
+    # the wrapper's buffers against the kernel's launch order: the tile sort
+    # writes k0, the merge rounds but the last write k1, k0, ... in turn, and
+    # the last round reads the int64 scratch while it writes the planes
+    rows = 2
+    out, k0, k1 = sk.sort_buffers(rows, n, torch.device("cpu"))
+    assert out.shape == (2, rows, n) and out.dtype == torch.int32
+    rounds = sk.merge_rounds(n)
+    if n <= sk.TILE:
+        # one launch, the tile sort, writes the planes; no key buffer
+        assert rounds == 0 and k0 is None and k1 is None
+        return
+    assert 1 << rounds == n // sk.TILE
+    writes = [k0] + [(k1, k0)[r % 2] for r in range(rounds - 1)]
+    scratch = writes[-1]
+    assert scratch is not out
+    assert scratch.shape == (rows, n) and scratch.dtype == torch.int64
+    assert {id(k0), id(k1)} == {id(out), id(scratch)}
+    # the planes' memory holds a (rows, n) row of 64-bit keys exactly
+    assert out.numel() * out.element_size() == rows * n * 8
