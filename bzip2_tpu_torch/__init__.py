@@ -1,11 +1,13 @@
-"""bzip2_tpu_torch: the bzip2 block encoder on PyTorch and CUDA.
+"""bzip2_tpu_torch: the bzip2 block encoder and decoder on PyTorch and CUDA.
 
-The port of ``bzip2_tpu``'s hybrid block encoder to a PyTorch device, with
-the four TPU kernels of its path (the BWT's pair sort, the two MTF rank
-kernels and the group histogram) written by hand in CUDA C++ for Hopper
+The port of ``bzip2_tpu``'s hybrid block encoder and device block decoder
+to a PyTorch device, with the four TPU kernels of the encoder (the BWT's
+pair sort, the two MTF rank kernels and the group histogram) and the
+decoder's inverse-BWT walk written by hand in CUDA C++ for Hopper
 (``csrc/``, built at first use by ``_build``).  The jax-free host modules of
-``bzip2_tpu`` (RLE1, CRC, bitstream, periodic corrector, api, native heap
-builder) are reused as they are.  This package imports no JAX.
+``bzip2_tpu`` (RLE1, CRC, bitstream, periodic corrector, api, the native
+heap builder and block parser) are reused as they are.  This package
+imports no JAX.
 """
 
 __version__ = "0.1.0"
@@ -39,3 +41,24 @@ def compress(data, level: int = 9, **engine_kwargs) -> bytes:
 
     _register_gpu(engine_kwargs)
     return api.compress(data, level, backend="gpu")
+
+
+def decompress(data, multi_stream: bool = False, **decoder_kwargs) -> bytes:
+    """Decompress one .bz2 stream (or all concatenated streams if
+    ``multi_stream``) on the port's device decoder; both CRC layers are
+    checked.  Raises ``bzip2_tpu.api``'s DataErrorMagic / DataError /
+    UnexpectedEOF where the host decoder would.  ``decoder_kwargs`` go to
+    :class:`bzip2_tpu_torch.decoder.DeviceDecoder` (``device`` defaults to
+    ``"cuda"``)."""
+    return decompress_with_tail(data, multi_stream, **decoder_kwargs)[0]
+
+
+def decompress_with_tail(data, multi_stream: bool = False,
+                         **decoder_kwargs) -> tuple[bytes, int]:
+    """Like :func:`decompress`; also returns the byte offset where parsing
+    stopped (the start of any trailing garbage or next stream)."""
+    from .decoder import DeviceDecoder, default_decoder
+
+    dec = DeviceDecoder(**decoder_kwargs) if decoder_kwargs \
+        else default_decoder()
+    return dec.decompress_with_tail(data, multi_stream=multi_stream)

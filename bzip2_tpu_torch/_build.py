@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads.  The library
 goes into ``build/bzip2_tpu_torch/`` beside the package and is keyed by a
 hash of the sources and flags, so an edited kernel always rebuilds.  A build
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "bzip2_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 _lock = threading.Lock()
@@ -61,12 +62,30 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
+    nvcc = _nvcc()
+    objs = {s: f"{tmp}.{os.path.basename(s)}.o" for s in _sources()
+            if s.endswith(".cu")}
+
+    def check(cmd, rc, out, err):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{out}\n{err}")
+
+    try:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in objs.items()]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        done = [(c, *p.communicate(), p.returncode) for c, p in zip(cmds, procs)]
+        for c, out, err, rc in done:
+            check(c, rc, out, err)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs.values()]
+        r = subprocess.run(link, capture_output=True, text=True)
+        check(link, r.returncode, r.stdout, r.stderr)
+    finally:
+        for o in objs.values():
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, so)     # atomic: concurrent builders agree on one file
     return so
 

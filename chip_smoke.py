@@ -7,14 +7,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. print the toolchain and the card; fail without CUDA;
   2. build the CUDA kernels from bzip2_tpu_torch/csrc/;
   3. hold each kernel against its plain PyTorch version at the main path's
-     shapes (exact equality) and time both with CUDA events;
+     shapes (exact equality) and time both with CUDA events; the walk
+     kernel's inputs are the first batch's two waves, recorded from one
+     decode of the -9 stream through bzip2_tpu_torch.decompress;
   4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress:
      the stream must equal bz2.compress(data, 9) and round-trip through
      bz2.decompress, every block must go to the device and every kernel
      must have been launched by that run;
   5. one more compression under torch.profiler, with the host RLE1 split
      timed apart: prints the device's busy share, the ops that take its
-     time, each hand kernel's device time and the peak device memory.
+     time, each hand kernel's device time and the peak device memory;
+  6. decode that -9 stream through bzip2_tpu_torch.decompress_with_tail
+     (one warm-up, then the timed run): the bytes and the consumed length
+     must be exact, every block decoded on the device, no block healed on
+     the host, the walk kernel launched, and native.decompress never
+     called; then a -1 stream of a 2 MB prefix and a two-member stream with
+     trailing garbage, and one more -9 decode under torch.profiler.
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
 """
@@ -38,12 +46,15 @@ REPLACES = {
     "mtf_tile_last": "bzip2_tpu/ops/mtf_pallas.py:34",
     "mtf_rank": "bzip2_tpu/ops/mtf_pallas.py:44",
     "group_hist": "bzip2_tpu/ops/mtf_pallas.py:77",
+    "ibwt_walk": "bzip2_tpu/ops/decode.py:386 ibwt.wave (lax.while_loop; "
+                 "no Pallas original)",
 }
 SOURCES = {
     "sort_pairs": "bzip2_tpu_torch/csrc/sort_pairs.cu",
     "mtf_tile_last": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
     "mtf_rank": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
     "group_hist": "bzip2_tpu_torch/csrc/group_hist.cu",
+    "ibwt_walk": "bzip2_tpu_torch/csrc/ibwt_walk.cu",
 }
 # the CUDA kernels each wrapper launches, as the profiler names them
 SYMBOLS = {
@@ -51,7 +62,10 @@ SYMBOLS = {
     "mtf_tile_last": ("tile_last_kernel",),
     "mtf_rank": ("rank_kernel",),
     "group_hist": ("group_hist_kernel",),
+    "ibwt_walk": ("ibwt_walk_kernel",),
 }
+ENCODE = ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist")
+DECODE = ("ibwt_walk",)
 
 
 def _run(cmd: list[str]) -> str:
@@ -121,29 +135,20 @@ def compare(torch, name, kern, plain, args, reps=5):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def profile_slice(torch, data: bytes, expect: bytes) -> None:
-    """Phase 5: the host RLE1 split alone, then one compression under
-    torch.profiler.  The device's busy share is the union of its kernel and
-    copy intervals over the profiled wall."""
-    import bzip2_tpu_torch
+def profiled(torch, fn) -> tuple:
+    """Run fn once under torch.profiler.  Returns (wall ms, device busy ms,
+    {device event name: (ms, count)}); busy is the union of the device's
+    kernel and copy intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bzip2_tpu_torch import engine
-    t0 = time.perf_counter()
-    engine.split_blocks(data, LEVEL)
-    split = time.perf_counter() - t0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = bzip2_tpu_torch.compress(data, LEVEL)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    if out != expect:
-        raise AssertionError("profiled stream differs from bz2.compress")
-
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -155,18 +160,20 @@ def profile_slice(torch, data: bytes, expect: bytes) -> None:
     for s, t in sorted(spans):
         busy += max(0.0, t - max(s, end))
         end = max(end, t)
-    busy /= 1e3
-    total = sum(ms for ms, _ in by_name.values())
-    if total <= 0:
+    if not by_name:
         raise AssertionError("torch.profiler recorded no device time")
-    print(f"phase 5: host rle1 split {split:.4f} s; profiled wall "
-          f"{wall:.1f} ms; device time {total:.1f} ms, busy {busy:.1f} ms "
-          f"= {100 * busy / wall:.1f}% of the wall; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return wall, busy / 1e3, by_name
+
+
+def print_profile(by_name: dict, kernels) -> None:
+    """The ops that take the device's time, and each hand kernel's device
+    time by its CUDA kernel names."""
+    total = sum(ms for ms, _ in by_name.values())
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}%  {n:5d}x  {name[:90]}",
               flush=True)
-    for kern, syms in SYMBOLS.items():
+    for kern in kernels:
+        syms = SYMBOLS[kern]
         parts = {s: [0.0, 0] for s in syms}
         for name, (ms, n) in by_name.items():
             for s in syms:
@@ -177,6 +184,113 @@ def profile_slice(torch, data: bytes, expect: bytes) -> None:
               "ms device time (" + ", ".join(
                   f"{s} {ms:.3f} ms {n}x" for s, (ms, n) in parts.items())
               + ")", flush=True)
+
+
+def profile_slice(torch, data: bytes, expect: bytes) -> None:
+    """Phase 5: the host RLE1 split alone, then one compression under
+    torch.profiler."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import engine
+    t0 = time.perf_counter()
+    engine.split_blocks(data, LEVEL)
+    split = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    wall, busy, by_name = profiled(
+        torch, lambda: out.append(bzip2_tpu_torch.compress(data, LEVEL)))
+    if out[0] != expect:
+        raise AssertionError("profiled stream differs from bz2.compress")
+    total = sum(ms for ms, _ in by_name.values())
+    print(f"phase 5: host rle1 split {split:.4f} s; profiled wall "
+          f"{wall:.1f} ms; device time {total:.1f} ms, busy {busy:.1f} ms "
+          f"= {100 * busy / wall:.1f}% of the wall; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print_profile(by_name, ENCODE)
+
+
+def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
+                 card: str) -> dict:
+    """Phase 6: the decode path through the port's entry points.  Returns
+    the kernel launch counts of the timed -9 decode."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch import decoder as dmod
+
+    def clean(name, got, want):
+        if got != want:
+            raise AssertionError(f"{name}: decoded output or consumed length "
+                                 "differs from the input")
+        if dmod.ANOMALIES != {"lane": 0, "batch": 0}:
+            raise AssertionError(f"{name}: host heals {dmod.ANOMALIES}")
+
+    # the port never hands a stream to the host decoder whole
+    host = dmod.native
+    real = host.decompress
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("native.decompress called on the decode path")
+
+    host.decompress = forbidden
+    try:
+        if bzip2_tpu_torch.decompress(expect) != data:   # warm-up
+            raise AssertionError("warm-up decode differs from the input")
+        dmod.reset_telemetry()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = bzip2_tpu_torch.decompress_with_tail(expect)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        share = dict(dmod.SHARE)
+        clean("-9 stream", res, (data, len(expect)))
+        if share != {"blocks": n_blocks, "dev_blocks": n_blocks}:
+            raise AssertionError(f"device decoded {share['dev_blocks']} of "
+                                 f"{share['blocks']} blocks handed to it "
+                                 f"({n_blocks} in the stream)")
+        if any(launches.get(k, 0) <= 0 for k in DECODE):
+            raise AssertionError(f"decode kernels not launched: {launches}")
+        mb = len(data) / 1e6
+        print(f"phase 6: decoded {mb:.3f} MB from {len(expect)} bytes at "
+              f"-{LEVEL}, {n_blocks} of {n_blocks} blocks on the device, "
+              "exact, no host heal", flush=True)
+        print(f"  wall {wall:.3f} s = {mb / wall:.3f} MB/s on {card}",
+              flush=True)
+        print("  stage walls (CUDA events): " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in dmod.STAGE_WALL.items()), flush=True)
+        print("  launches: " + json.dumps(
+            {k: launches[k] for k in DECODE}), flush=True)
+
+        prefix = data[:2 << 20]
+        s1 = bz2.compress(prefix, 1)
+        dmod.reset_telemetry()
+        clean("-1 prefix", bzip2_tpu_torch.decompress_with_tail(s1),
+              (prefix, len(s1)))
+        m1, m2 = bz2.compress(data[:1 << 20], 9), bz2.compress(
+            data[1 << 20:3 << 20], 5)
+        dmod.reset_telemetry()
+        clean("two members + garbage", bzip2_tpu_torch.decompress_with_tail(
+            m1 + m2 + b"trailing garbage", multi_stream=True),
+            (data[:3 << 20], len(m1) + len(m2)))
+        print(f"  -1 stream of {len(prefix)} bytes and a two-member stream "
+              "with trailing garbage: exact, consumed lengths right, no host "
+              "heal", flush=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        pwall, busy, by_name = profiled(
+            torch, lambda: out.append(bzip2_tpu_torch.decompress(expect)))
+        if out[0] != data:
+            raise AssertionError("profiled decode differs from the input")
+    finally:
+        host.decompress = real
+    total = sum(ms for ms, _ in by_name.values())
+    print(f"  profiled decode wall {pwall:.1f} ms; device time {total:.1f} ms, "
+          f"busy {busy:.1f} ms = {100 * busy / pwall:.1f}% of the wall; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print_profile(by_name, DECODE)
+    return launches
 
 
 def main() -> int:
@@ -272,9 +386,37 @@ def main() -> int:
                                     (mtfv.contiguous(), n_mtf.contiguous()))
     del last, seq, seqm, lx, mtfv, n_mtf
 
-    # ---- phase 4: the slice through the port's entry point
+    # the walk kernel at the -9 decoder's shapes: the (tt, cur0, cap) of the
+    # first batch's two waves, recorded from one decode of the stream
     import bzip2_tpu_torch
+    from bzip2_tpu_torch.ops import decode as dec_ops
+    from bzip2_tpu_torch.ops import ibwt_kernel as ik
     expect = bz2.compress(data, LEVEL)
+    waves = []
+    real_walk = dec_ops.ibwt_walk
+
+    def record(tt, cur0, cap):
+        if len(waves) < 2:
+            waves.append((tt, cur0, cap))
+        return real_walk(tt, cur0, cap)
+
+    dec_ops.ibwt_walk = record
+    try:
+        if bzip2_tpu_torch.decompress(expect) != data:
+            raise AssertionError("decode of the -9 stream differs from data")
+    finally:
+        dec_ops.ibwt_walk = real_walk
+    walk = [compare(torch, f"ibwt_walk wave{i + 1} {'x'.join(map(str, c.shape))}"
+                    f" cap {cap}", ik.ibwt_walk, ik.ibwt_walk_plain,
+                    (tt, c, cap), reps=3)
+            for i, (tt, c, cap) in enumerate(waves)]
+    # one batch's walk: both waves
+    results["ibwt_walk"] = {"max_abs_err": max(w["max_abs_err"] for w in walk),
+                            "ms": sum(w["ms"] for w in walk),
+                            "plain_ms": sum(w["plain_ms"] for w in walk)}
+    del waves, walk
+
+    # ---- phase 4: the slice through the port's entry point
     # one untimed pass pays the first-use costs at the batch shapes
     # (allocator growth, cuBLAS set-up); the timed pass below is the result
     if bzip2_tpu_torch.compress(data, LEVEL) != expect:
@@ -296,7 +438,7 @@ def main() -> int:
         raise AssertionError(f"device encoded {share['dev_blocks']} of "
                              f"{share['blocks']} blocks handed to the engine "
                              f"({len(blocks)} expected)")
-    missing = [k for k in REPLACES if launches.get(k, 0) <= 0]
+    missing = [k for k in ENCODE if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     mb = len(data) / 1e6
@@ -308,6 +450,10 @@ def main() -> int:
         f"{k} {v:.3f} s" for k, v in engine.STAGE_WALL.items()), flush=True)
     print("  launches: " + json.dumps(launches), flush=True)
     profile_slice(torch, data, expect)
+
+    # ---- phase 6: the decode path
+    launches.update({k: v for k, v in decode_phase(
+        torch, data, expect, len(blocks), card).items() if k in DECODE})
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],

@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from bzip2_tpu_torch import _build
+from bzip2_tpu_torch import decoder as dmod
+from bzip2_tpu_torch.ops import decode as TD
+from bzip2_tpu_torch.ops import ibwt_kernel as ik
 from bzip2_tpu_torch.ops import mtf_kernel as mk
 from bzip2_tpu_torch.ops import sort_kernel as sk
 
@@ -55,9 +58,32 @@ def test_build_failure_raises(monkeypatch, tmp_path):
         _build.build()
 
 
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One compile per .cu source, all started before any is waited for,
+    then one link; the objects are removed."""
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$*\" >> {log}\n"
+                    'while [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = -o ]; then touch "$2"; fi; shift\n'
+                    "done\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    so = _build.build()
+    assert os.path.exists(so) and os.listdir(tmp_path / "out") == [
+        os.path.basename(so)]
+    calls = log.read_text().splitlines()
+    cu = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in calls[:-1]) == cu
+    assert all(" -c " in c for c in calls[:-1])
+    assert " -shared " in calls[-1] and calls[-1].count(".o") == len(cu)
+
+
 def test_kernels_registered_with_counters():
     assert set(_build.KERNELS) == {"sort_pairs", "mtf_tile_last", "mtf_rank",
-                                   "group_hist"}
+                                   "group_hist", "ibwt_walk"}
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())
 
@@ -167,4 +193,122 @@ def test_engine_on_card_golden(cuda_device):
                                                    dtype=np.uint8))
     assert api.compress(data, 1, backend="torch-cuda") == \
         stdlib_bz2.compress(data, 1)
-    assert all(k.launches > 0 for k in _build.KERNELS.values())
+    assert all(_build.KERNELS[k].launches > 0 for k in
+               ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist"))
+
+
+# ------------------------------------------------- decoder (card) --
+
+def _golden(i):
+    with open(os.path.join(GOLDEN, f"sample{i}.ref"), "rb") as fh:
+        return fh.read()
+
+
+def _realistic_level9(n_bytes=2_030_000):
+    data = ((_golden(1) + _golden(2) + _golden(3)) * 8)[:n_bytes]
+    return data, stdlib_bz2.compress(data, 9)
+
+
+def _record_waves(monkeypatch):
+    """Record the (tt, cur0, cap) of every walk ops.decode.ibwt launches."""
+    waves = []
+    real = TD.ibwt_walk
+
+    def spy(tt, cur0, cap):
+        waves.append((tt, cur0, cap))
+        return real(tt, cur0, cap)
+
+    monkeypatch.setattr(TD, "ibwt_walk", spy)
+    return waves
+
+
+def _assert_walks_match(waves):
+    assert waves
+    for tt, cur0, cap in waves:
+        before = ik.WALK.launches
+        got = ik.ibwt_walk(tt, cur0, cap)
+        assert ik.WALK.launches == before + 1
+        exp = ik.ibwt_walk_plain(tt, cur0, cap)
+        for g, e in zip(got, exp):
+            assert g.dtype == e.dtype and torch.equal(g, e)
+
+
+@pytest.mark.cuda
+def test_ibwt_walk_kernel_matches_plain_level9(cuda_device, monkeypatch):
+    """Both waves at the -9 decoder's shapes: 8 blocks of up to 900,000,
+    (8, 4096) lanes with cap 440, then (8, 1024) lanes with cap 6600."""
+    from bzip2_tpu import native
+    _, comp = _realistic_level9()
+    buf = np.frombuffer(comp, np.uint8)
+    pbs, pos = [], 32
+    while True:
+        pb, _rc = native.parse_block(buf, pos, 9)
+        if pb is None:
+            break
+        pbs.append(pb)
+        pos = pb.end_bit
+    waves = _record_waves(monkeypatch)
+    dec = dmod.DeviceDecoder(device=cuda_device)
+    dec._decode_batch(buf, 9, (pbs * 3)[:8])
+    torch.cuda.synchronize()
+    assert [(tuple(c.shape), cap) for _, c, cap in waves] == [
+        ((8, 4096), 440), ((8, 1024), 6600)]
+    _assert_walks_match(waves)
+
+
+def _degenerate_lasts():
+    from bzip2_tpu.oracle import bwt as obwt
+    rng = np.random.default_rng(21)
+    blocks = [np.full(50_000, 7, np.uint8),                       # one symbol
+              np.tile(np.frombuffer(b"ab", np.uint8), 25_000),    # period 2
+              rng.integers(0, 4, 1000).astype(np.uint8),          # n < 4096
+              rng.integers(0, 256, 3).astype(np.uint8)]
+    N = 1 << 16
+    last = np.zeros((len(blocks), N), np.int32)
+    ns, origs = [], []
+    for i, b in enumerate(blocks):
+        col, orig = obwt.bwt(b)
+        last[i, :b.size] = col
+        ns.append(b.size)
+        origs.append(orig)
+    return (torch.from_numpy(last), torch.tensor(ns, dtype=torch.int32),
+            torch.tensor(origs, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_ibwt_walk_kernel_matches_plain_degenerate(cuda_device, monkeypatch):
+    last, ns, origs = _degenerate_lasts()
+    exp = TD.ibwt(last, ns, origs)
+    waves = _record_waves(monkeypatch)
+    got = TD.ibwt(last.to(cuda_device), ns.to(cuda_device),
+                  origs.to(cuda_device))
+    _assert_walks_match(waves)
+    for g, e in zip(got, exp):
+        assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.cuda
+def test_decoder_on_card(cuda_device):
+    data, comp = _realistic_level9()
+    small = stdlib_bz2.compress(_golden(1), 1)
+    dmod.reset_telemetry()
+    _build.reset_launches()
+    dec = dmod.DeviceDecoder(device=cuda_device)
+    assert dec.decompress(comp) == data
+    assert dec.decompress_with_tail(small + comp + b"junk") == (
+        _golden(1) + data, len(small) + len(comp))
+    assert dmod.ANOMALIES == {"lane": 0, "batch": 0}
+    assert dmod.SHARE == {"blocks": 7, "dev_blocks": 7}
+    assert ik.WALK.launches == 2 * 3
+
+
+@pytest.mark.cuda
+def test_decoder_real_heal_on_card(cuda_device, monkeypatch):
+    """The budget-2 heal: the host decodes the flagged -9 blocks through
+    native.decode_some, built on the card's host."""
+    import functools
+    data, comp = _realistic_level9()
+    monkeypatch.setattr(TD, "ibwt", functools.partial(TD.ibwt, budget=2))
+    dmod.reset_telemetry()
+    assert dmod.DeviceDecoder(device=cuda_device).decompress(comp) == data
+    assert dmod.ANOMALIES["lane"] > 0
