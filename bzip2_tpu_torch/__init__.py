@@ -4,18 +4,17 @@ The port of ``bzip2_tpu``'s hybrid block encoder and device block decoder
 to a PyTorch device, with the four TPU kernels of the encoder (the BWT's
 pair sort, the two MTF rank kernels and the group histogram) and the
 decoder's inverse-BWT walk written by hand in CUDA C++ for Hopper
-(``csrc/``, built at first use by ``_build``).  The jax-free host modules of
-``bzip2_tpu`` (RLE1, CRC, bitstream, periodic corrector, api, the native
-heap builder and block parser) are reused as they are.  This package
-imports no JAX.
+(``csrc/``, built at first use by ``_build``).  The host side (stream
+framing in ``api``, ``rle1``, ``crc``, ``bitstream``, the ``periodic``
+origPtr corrector and the C++ runtime in ``native``) is the port's own copy
+of ``bzip2_tpu``'s.  This package imports neither JAX nor ``bzip2_tpu``.
 """
 
 __version__ = "0.1.0"
 
 
 def _register_gpu(engine_kwargs: dict) -> None:
-    from bzip2_tpu import api
-
+    from . import api
     from .engine import Engine
 
     api.register_block_encoder("gpu", Engine(**engine_kwargs).encode_payloads)
@@ -23,10 +22,10 @@ def _register_gpu(engine_kwargs: dict) -> None:
 
 def enable_gpu_backend(**engine_kwargs) -> None:
     """Register the port's engine as block-encoder backend "gpu" for
-    ``bzip2_tpu.api.compress`` and make it the default.  ``engine_kwargs``
-    go to :class:`bzip2_tpu_torch.engine.Engine` (``device`` defaults to
-    ``"cuda"``)."""
-    from bzip2_tpu import api
+    ``bzip2_tpu_torch.api.compress`` and make it the default.
+    ``engine_kwargs`` go to :class:`bzip2_tpu_torch.engine.Engine`
+    (``device`` defaults to ``"cuda"``)."""
+    from . import api
 
     _register_gpu(engine_kwargs)
     api.set_default_backend("gpu")
@@ -35,9 +34,10 @@ def enable_gpu_backend(**engine_kwargs) -> None:
 def compress(data, level: int = 9, **engine_kwargs) -> bytes:
     """Compress ``data`` into one standard .bz2 stream, every block encoded
     by the port's engine.  The stream framing, RLE1 split and periodic
-    origPtr corrector are ``bzip2_tpu.api``'s; this (re)registers backend
-    "gpu" with ``engine_kwargs`` and does not change the default backend."""
-    from bzip2_tpu import api
+    origPtr corrector are ``bzip2_tpu_torch.api``'s; this (re)registers
+    backend "gpu" with ``engine_kwargs`` and does not change the default
+    backend."""
+    from . import api
 
     _register_gpu(engine_kwargs)
     return api.compress(data, level, backend="gpu")
@@ -46,7 +46,7 @@ def compress(data, level: int = 9, **engine_kwargs) -> bytes:
 def decompress(data, multi_stream: bool = False, **decoder_kwargs) -> bytes:
     """Decompress one .bz2 stream (or all concatenated streams if
     ``multi_stream``) on the port's device decoder; both CRC layers are
-    checked.  Raises ``bzip2_tpu.api``'s DataErrorMagic / DataError /
+    checked.  Raises ``bzip2_tpu_torch.api``'s DataErrorMagic / DataError /
     UnexpectedEOF where the host decoder would.  ``decoder_kwargs`` go to
     :class:`bzip2_tpu_torch.decoder.DeviceDecoder` (``device`` defaults to
     ``"cuda"``)."""

@@ -35,13 +35,12 @@ import time
 import numpy as np
 import torch
 
-from bzip2_tpu import constants as C
-from bzip2_tpu import native
-from bzip2_tpu.api import DataError, DataErrorMagic, UnexpectedEOF
-from bzip2_tpu.parallel.decode import find_bit_magics
-
+from . import constants as C
+from . import native
+from .api import DataError, DataErrorMagic, UnexpectedEOF
 from .engine import _resolve_device
 from .ops import decode as D
+from .parallel.decode import find_bit_magics
 
 #: blocks per device batch
 BATCH = 8

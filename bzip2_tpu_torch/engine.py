@@ -11,8 +11,8 @@ Per batch of RLE1 blocks:
   encode_post  canonical codes, selector MTF, field      device
                emission, bit packing
 
-``Engine.encode_payloads`` is a block encoder for
-``bzip2_tpu.api.register_block_encoder``: the api splits the input into
+``Engine.encode_payloads`` is a block encoder for the port's
+``api.register_block_encoder``: the api splits the input into
 RLE1 blocks, applies the periodic origPtr corrector, bit-splices the
 payloads and frames the stream.  Every block goes to the device; blocks
 are batched in order and the last batch is padded with dummy lanes
@@ -25,8 +25,8 @@ import time
 import numpy as np
 import torch
 
-from bzip2_tpu import constants as C
-
+from . import constants as C
+from . import native, rle1
 from .ops.bitpack import pack_fields
 from .ops.bwt import bwt_batched
 from .ops.groupsearch import (build_group_hist, group_iter,
@@ -204,8 +204,7 @@ def stage_from_numpy(arrays, device) -> tuple:
 
 def split_blocks(data, level: int) -> list:
     """RLE1-encode ``data`` and split it into the blocks of ``level``
-    (``bzip2_tpu.rle1``, reused): the blocks ``encode_payloads`` is given."""
-    from bzip2_tpu import rle1
+    (the port's ``rle1``): the blocks ``encode_payloads`` is given."""
     return rle1.encode_blocks(data, level)
 
 
@@ -236,17 +235,16 @@ def _resolve_device(device) -> torch.device:
 
 class Engine:
     """Batched block encoder: device stages with the host's exact-heap
-    Huffman lengths (``bzip2_tpu.native``) between them."""
+    Huffman lengths (the port's ``native``) between them."""
 
     #: target bytes of input per device batch when batch_size is automatic
     AUTO_BATCH_BYTES = 12 << 20
 
     def __init__(self, batch_size: int | None = None, device="cuda"):
-        from bzip2_tpu import native
         self.device = _resolve_device(device)
         if not native.available():
             raise RuntimeError("the hybrid encoder needs the native host "
-                               "runtime (bzip2_tpu.native), which did not build")
+                               "runtime (bzip2_tpu_torch.native), which did not build")
         self.batch_size = batch_size
 
     def _batch_size_for(self, level: int) -> int:
@@ -257,7 +255,6 @@ class Engine:
     def encode_batch(self, level, arr, ns, uses, crcs):
         """One device batch of padded numpy inputs -> (words uint32 (B, k)
         numpy, nbits int64 (B,) numpy), words cut to the longest block."""
-        from bzip2_tpu import native
         dev = self.device
         N = arr.shape[1]
         B = arr.shape[0]

@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bzip2_tpu.constants import MAX_ALPHA_SIZE as A
+from ..constants import MAX_ALPHA_SIZE as A
 
 from .huffman import assign_codes_lanes
 from .ibwt_kernel import ibwt_walk

@@ -10,9 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from bzip2_tpu.constants import (G_SIZE, GREATER_ICOST, LESSER_ICOST,
-                                 MAX_ALPHA_SIZE)
-
+from ..constants import G_SIZE, GREATER_ICOST, LESSER_ICOST, MAX_ALPHA_SIZE
 from .mtf_kernel import group_hist, mtf_ranks
 
 A = MAX_ALPHA_SIZE

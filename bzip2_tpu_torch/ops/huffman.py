@@ -2,13 +2,13 @@
 ``bzip2_tpu/ops/huffman.py:assign_codes_lanes``; huffman.c:152-166).
 
 The code lengths themselves come from the host's exact-heap builder
-(``bzip2_tpu.native.make_code_lengths_batch``) in the hybrid flow.
+(``bzip2_tpu_torch.native.make_code_lengths_batch``) in the hybrid flow.
 """
 from __future__ import annotations
 
 import torch
 
-from bzip2_tpu.constants import MAX_ALPHA_SIZE as A
+from ..constants import MAX_ALPHA_SIZE as A
 
 
 def assign_codes_lanes(lens: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,12 @@ PyTorch version.
 
 Counterpart of ``bzip2_tpu/ops/mtf_pallas.py``.  ``mtf_ranks`` keeps the
 Pallas structure: per 256-position tile the last occurrence of each symbol
-(kernel ``mtf_tile_last``), the exclusive cross-tile carries by a plain
-``torch.cummax``, then the rank of each position from its tile and the
-carries (kernel ``mtf_rank``).  A wrapper runs its plain version only for a
-tensor on the CPU; for a CUDA tensor it launches its kernel.
+(kernel ``mtf_tile_last``, which writes them shifted one tile on, with the
+initial list's seeds in front), the exclusive cross-tile carries by a plain
+``torch.cummax`` over those slots, then the rank of each position from its
+tile and the carries (kernel ``mtf_rank``).  A wrapper runs its plain
+version only for a tensor on the CPU; for a CUDA tensor it launches its
+kernel.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ _PLAIN_ROWS = 128    # tiles per chunk of the plain rank (bounds its one-hots)
 _PLAIN_GROUPS = 4096  # groups per chunk of the plain histogram
 
 TILE_LAST = _build.Kernel("mtf_tile_last", "bz2t_mtf_tile_last",
-                          [ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_void_p])
+                          [ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_int,
+                           ct.c_void_p])
 RANK = _build.Kernel("mtf_rank", "bz2t_mtf_rank",
                      [ct.c_void_p] * 3 + [ct.c_int64, ct.c_void_p])
 GROUP_HIST = _build.Kernel("group_hist", "bz2t_group_hist",
@@ -39,28 +42,40 @@ def _check_tiles(t: torch.Tensor, name: str) -> None:
 
 # ------------------------------------------------------------ tile last --
 
-def tile_last_plain(seqm: torch.Tensor) -> torch.Tensor:
+def tile_last_plain(seqm: torch.Tensor, tiles_per_row: int) -> torch.Tensor:
     rows = seqm.shape[0]
-    out = torch.empty((rows, 256), dtype=torch.int16, device=seqm.device)
-    sym = torch.arange(256, dtype=torch.int32, device=seqm.device)
-    it = torch.arange(PTILE, dtype=torch.int32, device=seqm.device)[None, :, None]
+    dev = seqm.device
+    last = torch.empty((rows, 256), dtype=torch.int32, device=dev)
+    sym = torch.arange(256, dtype=torch.int32, device=dev)
+    it = torch.arange(PTILE, dtype=torch.int32, device=dev)[None, :, None]
     for r0 in range(0, rows, _PLAIN_ROWS):
         s = seqm[r0:r0 + _PLAIN_ROWS]
         occ = torch.where(s[:, :, None] == sym, it, -1)
-        out[r0:r0 + _PLAIN_ROWS] = occ.amax(dim=1).to(torch.int16)
-    return out
+        last[r0:r0 + _PLAIN_ROWS] = occ.amax(dim=1)
+    T = tiles_per_row
+    l3 = last.reshape(rows // T, T, 256)
+    base = (torch.arange(T, dtype=torch.int32, device=dev) * PTILE)[None, :, None]
+    out = torch.empty_like(l3)
+    out[:, 0] = -(sym + 1)
+    out[:, 1:] = torch.where(l3 >= 0, base + l3, _NEG)[:, :-1]
+    return out.reshape(rows, 256)
 
 
-def tile_last(seqm: torch.Tensor) -> torch.Tensor:
-    """seqm: (rows, 256) int32 symbols (PAD_SYM at invalid positions).
-    Returns (rows, 256) int16: per symbol its last in-tile index, or -1."""
+def tile_last(seqm: torch.Tensor, tiles_per_row: int) -> torch.Tensor:
+    """seqm: (rows, 256) int32 symbols (PAD_SYM at invalid positions), rows
+    = B * tiles_per_row.  Returns (rows, 256) int32, the carries' cummax
+    input: in each row, slot 0 holds the initial list's seeds (symbol j at
+    -(j+1)) and slot t+1 tile t's last occurrence of each symbol as a row
+    index (t * 256 + in-tile index), or -2^30 where it does not occur."""
     _check_tiles(seqm, "tile_last")
+    if seqm.shape[0] % tiles_per_row:
+        raise ValueError(f"tile_last: {seqm.shape[0]} tiles do not split "
+                         f"into rows of {tiles_per_row}")
     if seqm.device.type == "cpu":
-        return tile_last_plain(seqm)
+        return tile_last_plain(seqm, tiles_per_row)
     _build.check(seqm, "tile_last seq", torch.int32, 2)
-    out = torch.empty((seqm.shape[0], 256), dtype=torch.int16,
-                      device=seqm.device)
-    TILE_LAST(_build.ptr(seqm), _build.ptr(out), seqm.shape[0],
+    out = torch.empty_like(seqm)
+    TILE_LAST(_build.ptr(seqm), _build.ptr(out), seqm.shape[0], tiles_per_row,
               _build.stream_of(seqm))
     return out
 
@@ -95,7 +110,8 @@ def rank_plain(seqm: torch.Tensor, lx: torch.Tensor) -> torch.Tensor:
 
 
 def rank(seqm: torch.Tensor, lx: torch.Tensor) -> torch.Tensor:
-    """seqm: (rows, 256) int32 symbols; lx: (rows, 256) int32 carries.
+    """seqm: (rows, 256) int32 symbols; lx: (rows, 256) int32 carries as
+    ``carries`` makes them (distinct within a tile, in [-256, 2^24 - 256)).
     Returns (rows, 256) int32 MTF ranks, 0 at invalid symbols."""
     _check_tiles(seqm, "rank seq")
     _check_tiles(lx, "rank lx")
@@ -103,24 +119,20 @@ def rank(seqm: torch.Tensor, lx: torch.Tensor) -> torch.Tensor:
         return rank_plain(seqm, lx)
     _build.check(seqm, "rank seq", torch.int32, 2)
     _build.check(lx, "rank lx", torch.int32, 2)
+    if lx.data_ptr() % 16:
+        raise ValueError("rank lx: the kernel reads it in 16-byte vectors; "
+                         "pass a 16-byte aligned tensor")
     out = torch.empty_like(seqm)
     RANK(_build.ptr(seqm), _build.ptr(lx), _build.ptr(out), seqm.shape[0],
          _build.stream_of(seqm))
     return out
 
 
-def carries(last16: torch.Tensor, B: int) -> torch.Tensor:
-    """Exclusive cross-tile carries (global last occurrence of each symbol
-    before each tile), seeded with the initial list: symbol j at -(j+1)."""
-    dev = last16.device
-    n_tiles = last16.shape[0] // B
-    l3 = last16.reshape(B, n_tiles, 256).to(torch.int32)
-    base = (torch.arange(n_tiles, dtype=torch.int32, device=dev)
-            * PTILE)[None, :, None]
-    tl32 = torch.where(l3 >= 0, base + l3, _NEG)
-    init = -(torch.arange(256, dtype=torch.int32, device=dev) + 1)
-    shifted = torch.cat([init.expand(B, 1, 256), tl32[:, :-1]], dim=1)
-    return torch.cummax(shifted, dim=1).values.reshape(B * n_tiles, 256)
+def carries(tl: torch.Tensor, B: int) -> torch.Tensor:
+    """Exclusive cross-tile carries (each symbol's last occurrence in its
+    row before each tile, or its seed -(j+1)) from ``tile_last``'s output:
+    a cummax over each row's slots."""
+    return torch.cummax(tl.reshape(B, -1, 256), dim=1).values.reshape(-1, 256)
 
 
 def mtf_ranks(seq: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -133,7 +145,7 @@ def mtf_ranks(seq: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if Np > N:
         seqm = torch.nn.functional.pad(seqm, (0, Np - N), value=PAD_SYM)
     seqm = seqm.reshape(B * (Np // PTILE), PTILE).contiguous()
-    lx = carries(tile_last(seqm), B).contiguous()
+    lx = carries(tile_last(seqm, Np // PTILE), B).contiguous()
     return rank(seqm, lx).reshape(B, Np)[:, :N]
 
 

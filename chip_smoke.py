@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (bzip2_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-mtf PATH.cu]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. print the toolchain and the card; fail without CUDA;
-  2. build the CUDA kernels from bzip2_tpu_torch/csrc/;
+  2. build the CUDA kernels from bzip2_tpu_torch/csrc/ and, at the same
+     time, the port's C++ host runtime from bzip2_tpu_torch/native/;
   3. hold each kernel against its plain PyTorch version at the main path's
-     shapes (exact equality) and time both with CUDA events; the walk
-     kernel's inputs are the first batch's two waves, recorded from one
-     decode of the -9 stream through bzip2_tpu_torch.decompress;
+     shapes (exact equality) and time both with CUDA events, beside its
+     bound (the larger of its bytes over the card's memory rate and its
+     operations over its peak rate) and, where one PyTorch call computes
+     the same function, that call's time.  The MTF kernels and the group
+     histogram take the first -9 encode batch (13 blocks); the walk
+     kernel's inputs are the first decode batch's two waves, recorded from
+     one decode of the -9 stream through bzip2_tpu_torch.decompress.
+     With --old-mtf, an earlier mtf_ranks.cu of the first design is built
+     into build/probe/ and its two kernels are timed on the same batch, in
+     turns with the current ones;
   4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress:
      the stream must equal bz2.compress(data, 9) and round-trip through
      bz2.decompress, every block must go to the device and every kernel
@@ -20,8 +28,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. decode that -9 stream through bzip2_tpu_torch.decompress_with_tail
      (one warm-up, then the timed run): the bytes and the consumed length
      must be exact, every block decoded on the device, no block healed on
-     the host, the walk kernel launched, and native.decompress never
-     called; then a -1 stream of a 2 MB prefix and a two-member stream with
+     the host, the walk kernel launched, and no whole-stream host decoder
+     bound by the port's native runtime; then a -1 stream of a 2 MB prefix and a two-member stream with
      trailing garbage, and one more -9 decode under torch.profiler.
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
@@ -38,6 +46,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_MS = 3.35e9        # H100 SXM device memory, 3.35 TB/s
+INT32_OPS_PER_MS = 67e9          # its non-tensor 32-bit peak, 67 T/s
 LEVEL = 9
 CORPUS_BYTES = 16 << 20
 SEED = 20261016
@@ -110,8 +120,23 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def compare(torch, name, kern, plain, args, reps=5):
-    """Run kernel and plain version on the same inputs; demand equality."""
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(nbytes: int, ops: int = 0) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    32-bit operations over its peak rate, whichever is larger."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / INT32_OPS_PER_MS
+    return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o
+            else "operations"}
+
+
+def compare(torch, name, kern, plain, args, reps=5, library=None, work=None):
+    """Run kernel and plain version on the same inputs; demand equality.
+    ``work(args, outputs)`` gives (bytes, operations) for the bound (by
+    default each input read once and each output written once);
+    ``library`` is one PyTorch call that computes the same function."""
     got = kern(*args)
     exp = plain(*args)
     torch.cuda.synchronize()
@@ -129,10 +154,19 @@ def compare(torch, name, kern, plain, args, reps=5):
                              f"(max abs err {err})")
     ms = cuda_ms(torch, lambda: kern(*args), reps)
     plain_ms = cuda_ms(torch, lambda: plain(*args), reps)
+    lib_ms = None if library is None else cuda_ms(torch, library, reps)
+    if work is None:
+        nbytes = tensor_bytes(*(a for a in args if hasattr(a, "numel")), *got)
+        b = bound(nbytes)
+    else:
+        b = bound(*work(args, got))
     shape = "x".join(str(s) for s in args[0].shape)
-    print(f"  {name:14s} {shape:>14s}  kernel {ms:9.3f} ms   "
-          f"plain {plain_ms:9.3f} ms   max_abs_err {err}", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    lib = "" if lib_ms is None else f"   library {lib_ms:8.3f} ms"
+    print(f"  {name:14s} {shape:>14s}  kernel {ms:9.4f} ms   "
+          f"plain {plain_ms:9.3f} ms   bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}){lib}   max_abs_err {err}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": lib_ms}
 
 
 def profiled(torch, fn) -> tuple:
@@ -223,67 +257,61 @@ def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
         if dmod.ANOMALIES != {"lane": 0, "batch": 0}:
             raise AssertionError(f"{name}: host heals {dmod.ANOMALIES}")
 
-    # the port never hands a stream to the host decoder whole
-    host = dmod.native
-    real = host.decompress
+    # the port never hands a stream to a host decoder whole: its native
+    # runtime binds none
+    if hasattr(dmod.native, "decompress"):
+        raise AssertionError("the port's native runtime binds a whole-stream "
+                             "decoder")
+    if bzip2_tpu_torch.decompress(expect) != data:   # warm-up
+        raise AssertionError("warm-up decode differs from the input")
+    dmod.reset_telemetry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = bzip2_tpu_torch.decompress_with_tail(expect)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    share = dict(dmod.SHARE)
+    clean("-9 stream", res, (data, len(expect)))
+    if share != {"blocks": n_blocks, "dev_blocks": n_blocks}:
+        raise AssertionError(f"device decoded {share['dev_blocks']} of "
+                             f"{share['blocks']} blocks handed to it "
+                             f"({n_blocks} in the stream)")
+    if any(launches.get(k, 0) <= 0 for k in DECODE):
+        raise AssertionError(f"decode kernels not launched: {launches}")
+    mb = len(data) / 1e6
+    print(f"phase 6: decoded {mb:.3f} MB from {len(expect)} bytes at "
+          f"-{LEVEL}, {n_blocks} of {n_blocks} blocks on the device, "
+          "exact, no host heal", flush=True)
+    print(f"  wall {wall:.3f} s = {mb / wall:.3f} MB/s on {card}",
+          flush=True)
+    print("  stage walls (CUDA events): " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in dmod.STAGE_WALL.items()), flush=True)
+    print("  launches: " + json.dumps(
+        {k: launches[k] for k in DECODE}), flush=True)
 
-    def forbidden(*_a, **_k):
-        raise AssertionError("native.decompress called on the decode path")
+    prefix = data[:2 << 20]
+    s1 = bz2.compress(prefix, 1)
+    dmod.reset_telemetry()
+    clean("-1 prefix", bzip2_tpu_torch.decompress_with_tail(s1),
+          (prefix, len(s1)))
+    m1, m2 = bz2.compress(data[:1 << 20], 9), bz2.compress(
+        data[1 << 20:3 << 20], 5)
+    dmod.reset_telemetry()
+    clean("two members + garbage", bzip2_tpu_torch.decompress_with_tail(
+        m1 + m2 + b"trailing garbage", multi_stream=True),
+        (data[:3 << 20], len(m1) + len(m2)))
+    print(f"  -1 stream of {len(prefix)} bytes and a two-member stream "
+          "with trailing garbage: exact, consumed lengths right, no host "
+          "heal", flush=True)
 
-    host.decompress = forbidden
-    try:
-        if bzip2_tpu_torch.decompress(expect) != data:   # warm-up
-            raise AssertionError("warm-up decode differs from the input")
-        dmod.reset_telemetry()
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        res = bzip2_tpu_torch.decompress_with_tail(expect)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: v.launches for k, v in _build.KERNELS.items()}
-        share = dict(dmod.SHARE)
-        clean("-9 stream", res, (data, len(expect)))
-        if share != {"blocks": n_blocks, "dev_blocks": n_blocks}:
-            raise AssertionError(f"device decoded {share['dev_blocks']} of "
-                                 f"{share['blocks']} blocks handed to it "
-                                 f"({n_blocks} in the stream)")
-        if any(launches.get(k, 0) <= 0 for k in DECODE):
-            raise AssertionError(f"decode kernels not launched: {launches}")
-        mb = len(data) / 1e6
-        print(f"phase 6: decoded {mb:.3f} MB from {len(expect)} bytes at "
-              f"-{LEVEL}, {n_blocks} of {n_blocks} blocks on the device, "
-              "exact, no host heal", flush=True)
-        print(f"  wall {wall:.3f} s = {mb / wall:.3f} MB/s on {card}",
-              flush=True)
-        print("  stage walls (CUDA events): " + ", ".join(
-            f"{k} {v:.4f} s" for k, v in dmod.STAGE_WALL.items()), flush=True)
-        print("  launches: " + json.dumps(
-            {k: launches[k] for k in DECODE}), flush=True)
-
-        prefix = data[:2 << 20]
-        s1 = bz2.compress(prefix, 1)
-        dmod.reset_telemetry()
-        clean("-1 prefix", bzip2_tpu_torch.decompress_with_tail(s1),
-              (prefix, len(s1)))
-        m1, m2 = bz2.compress(data[:1 << 20], 9), bz2.compress(
-            data[1 << 20:3 << 20], 5)
-        dmod.reset_telemetry()
-        clean("two members + garbage", bzip2_tpu_torch.decompress_with_tail(
-            m1 + m2 + b"trailing garbage", multi_stream=True),
-            (data[:3 << 20], len(m1) + len(m2)))
-        print(f"  -1 stream of {len(prefix)} bytes and a two-member stream "
-              "with trailing garbage: exact, consumed lengths right, no host "
-              "heal", flush=True)
-
-        torch.cuda.reset_peak_memory_stats()
-        out = []
-        pwall, busy, by_name = profiled(
-            torch, lambda: out.append(bzip2_tpu_torch.decompress(expect)))
-        if out[0] != data:
-            raise AssertionError("profiled decode differs from the input")
-    finally:
-        host.decompress = real
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    pwall, busy, by_name = profiled(
+        torch, lambda: out.append(bzip2_tpu_torch.decompress(expect)))
+    if out[0] != data:
+        raise AssertionError("profiled decode differs from the input")
     total = sum(ms for ms, _ in by_name.values())
     print(f"  profiled decode wall {pwall:.1f} ms; device time {total:.1f} ms, "
           f"busy {busy:.1f} ms = {100 * busy / pwall:.1f}% of the wall; peak "
@@ -293,7 +321,75 @@ def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
     return launches
 
 
+def old_mtf_pass(torch, path, seqm, tl, lx, B) -> None:
+    """Phase 3 with --old-mtf: the first design's mtf_ranks.cu (its
+    bz2t_mtf_tile_last writes (rows, 256) int16 in-tile indices, -1 where a
+    symbol is absent; its bz2t_mtf_rank takes the current arguments) on the
+    current kernels' batch.  Both old kernels are held against the current
+    outputs, then timed in turns: old, current, current, old."""
+    import ctypes as ct
+    import hashlib
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import mtf_kernel as mk
+    with open(path, "rb") as fh:
+        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
+    so = os.path.join(HERE, "build", "probe", f"libmtf_old_{tag}.so")
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                        _build.CSRC, "-o", so, path], check=True)
+    lib = ct.CDLL(so)
+    lib.bz2t_mtf_tile_last.argtypes = [ct.c_void_p] * 2 + [ct.c_int64,
+                                                           ct.c_void_p]
+    lib.bz2t_mtf_rank.argtypes = [ct.c_void_p] * 3 + [ct.c_int64, ct.c_void_p]
+    rows = seqm.shape[0]
+    l16 = torch.empty((rows, mk.PTILE), dtype=torch.int16, device=seqm.device)
+    out = torch.empty_like(seqm)
+    stream = _build.stream_of(seqm)
+
+    def old_last():
+        if lib.bz2t_mtf_tile_last(seqm.data_ptr(), l16.data_ptr(), rows,
+                                  stream):
+            raise AssertionError("old tile_last did not launch")
+
+    def old_rank():
+        if lib.bz2t_mtf_rank(seqm.data_ptr(), lx.data_ptr(), out.data_ptr(),
+                             rows, stream):
+            raise AssertionError("old rank did not launch")
+
+    old_last()
+    old_rank()
+    l3 = l16.reshape(B, -1, mk.PTILE).to(torch.int32)[:, :-1]
+    base = (torch.arange(l3.shape[1], dtype=torch.int32, device=seqm.device)
+            * mk.PTILE)[None, :, None]
+    if not torch.equal(torch.where(l3 >= 0, base + l3, -(1 << 30)),
+                       tl.reshape(B, -1, mk.PTILE)[:, 1:]):
+        raise AssertionError("old tile_last disagrees with the current one")
+    if not torch.equal(out, mk.rank(seqm, lx)):
+        raise AssertionError("old rank disagrees with the current one")
+    T = rows // B
+    t = {"tile_last old": cuda_ms(torch, old_last, 5),
+         "tile_last new": cuda_ms(torch, lambda: mk.tile_last(seqm, T), 5),
+         "rank old": cuda_ms(torch, old_rank, 5),
+         "rank new": cuda_ms(torch, lambda: mk.rank(seqm, lx), 5),
+         "rank new 2": cuda_ms(torch, lambda: mk.rank(seqm, lx), 5),
+         "rank old 2": cuda_ms(torch, old_rank, 5)}
+    speedup = (t["rank old"] + t["rank old 2"]) / (t["rank new"]
+                                                   + t["rank new 2"])
+    print(f"  old design {os.path.basename(path)}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; rank {speedup:.2f}x faster; rank-0 share "
+        f"{float((out == 0).float().mean()):.4f}", flush=True)
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-mtf", metavar="PATH.cu",
+                    help="an mtf_ranks.cu of the first design to time beside "
+                    "the current MTF kernels")
+    args = ap.parse_args()
     sys.path.insert(0, HERE)
     # ---- phase 1: toolchain and card
     import torch
@@ -308,16 +404,29 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     torch.cuda.set_device(0)
 
-    # the engine's native heap builder: plain build (the PGO flow runs a
-    # training subprocess of its own); Engine() raises if it does not build
-    os.environ.setdefault("BZ2TPU_NO_PGO", "1")
+    # ---- phase 2: build the kernels and the host runtime side by side
+    import threading
 
-    # ---- phase 2: build the kernels
+    from bzip2_tpu_torch import native
+    from bzip2_tpu_torch.native import build as native_build
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():
+        host["so"] = native_build.ensure_built()
+        host["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build_host)
+    th.start()
     so = _build.build()
     _build._load()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
           f"{os.path.relpath(so, HERE)}", flush=True)
+    th.join()
+    if host["so"] is None or not native.available():
+        raise AssertionError("the port's native host runtime did not build")
+    print(f"host runtime built in {host['s']:.2f} s: "
+          f"{os.path.relpath(host['so'], HERE)}", flush=True)
 
     # ---- phase 3: each kernel against its plain version
     from bzip2_tpu_torch import engine
@@ -346,14 +455,25 @@ def main() -> int:
             a[:, inf_from:] = 0x7FFFFFFF
         return (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
 
-    def sort_case(name, args, reps=5):
+    def sort_work(args, out):
+        """16 bytes a pair; log2(n) compares a pair."""
+        rows, n = args[0].shape
+        return tensor_bytes(*args, *out), rows * n * (n.bit_length() - 1)
+
+    def sort_case(name, args, reps=5, library=False):
+        lib = None
+        if library:     # torch.sort of the packed key of sort_pairs_plain
+            key = ((args[0].to(torch.int64) << 32)
+                   | (args[1].to(torch.int64) + (1 << 31)))
+            lib = lambda: torch.sort(key, dim=1)        # noqa: E731
         return compare(torch, name, sk.sort_pairs, sk.sort_pairs_plain, args,
-                       reps)
+                       reps, library=lib, work=sort_work)
 
     # the main path's shape: a -9 batch of 13 blocks of up to 900,000
     # rotations padded to 2^20 with INF-keyed lanes
     results["sort_pairs"] = sort_case("sort_pairs INF",
-                                      pairs(13, 1 << 20, inf_from=900_000))
+                                      pairs(13, 1 << 20, inf_from=900_000),
+                                      library=True)
     sort_case("sort_pairs dup", pairs(13, 1 << 20, span=4), reps=2)
     for n in _tail_ladder(1 << 20):   # the tail stages' compaction widths
         sort_case("sort_pairs", pairs(13, n), reps=2)
@@ -366,7 +486,9 @@ def main() -> int:
     data = corpus(CORPUS_BYTES, SEED)
     blocks = engine.split_blocks(data, LEVEL)
     N = _block_pad_size(LEVEL)
-    arr, ns, uses, _ = engine.batch_arrays(blocks[:2], 2, N)
+    # the main path's first batch: 13 blocks at -9
+    bsz = engine.Engine(device=dev)._batch_size_for(LEVEL)
+    arr, ns, uses, _ = engine.batch_arrays(blocks[:bsz], bsz, N)
     bt, nt, ut = stage_from_numpy((arr, ns, uses), dev)
     last, _, _ = bwt_batched(bt, nt)
     # the MTF input exactly as mtf_rle2_batched builds it
@@ -375,16 +497,24 @@ def main() -> int:
     remap = torch.cumsum(ui, 1, dtype=torch.int32) - ui
     seq = torch.where(valid, torch.gather(remap, 1, last.to(torch.int64)), 0)
     seqm = torch.where(valid, seq, mk.PAD_SYM).reshape(-1, mk.PTILE).contiguous()
+    T = seqm.shape[0] // bsz
     results["mtf_tile_last"] = compare(torch, "mtf_tile_last", mk.tile_last,
-                                       mk.tile_last_plain, (seqm,))
-    lx = mk.carries(mk.tile_last(seqm), 2).contiguous()
+                                       mk.tile_last_plain, (seqm, T))
+    tl = mk.tile_last(seqm, T)
+    cm_ms = cuda_ms(torch, lambda: mk.carries(tl, bsz), 5)
+    print(f"  carries cummax {'x'.join(map(str, tl.shape))}: {cm_ms:.4f} ms "
+          f"(bound {bound(2 * tensor_bytes(tl))['bound_ms']:.4f} ms, bytes)",
+          flush=True)
+    lx = mk.carries(tl, bsz).contiguous()
     results["mtf_rank"] = compare(torch, "mtf_rank", mk.rank, mk.rank_plain,
-                                  (seqm, lx), reps=2)
+                                  (seqm, lx), reps=3)
+    if args.old_mtf:
+        old_mtf_pass(torch, args.old_mtf, seqm, tl, lx, bsz)
     mtfv, n_mtf, _ = mtf_rle2_batched(last, nt, ut)
     results["group_hist"] = compare(torch, "group_hist", mk.group_hist,
                                     mk.group_hist_plain,
                                     (mtfv.contiguous(), n_mtf.contiguous()))
-    del last, seq, seqm, lx, mtfv, n_mtf
+    del last, seq, seqm, tl, lx, mtfv, n_mtf
 
     # the walk kernel at the -9 decoder's shapes: the (tt, cur0, cap) of the
     # first batch's two waves, recorded from one decode of the stream
@@ -406,14 +536,22 @@ def main() -> int:
             raise AssertionError("decode of the -9 stream differs from data")
     finally:
         dec_ops.ibwt_walk = real_walk
+
+    def walk_work(args, out):
+        """The steps taken: a 4-byte successor read and a byte written each;
+        each lane's start read and (cur, cnt, hitp) written."""
+        return (int(out[1].sum()) * 5 + tensor_bytes(args[1], *out[:3]), 0)
+
     walk = [compare(torch, f"ibwt_walk wave{i + 1} {'x'.join(map(str, c.shape))}"
                     f" cap {cap}", ik.ibwt_walk, ik.ibwt_walk_plain,
-                    (tt, c, cap), reps=3)
+                    (tt, c, cap), reps=3, work=walk_work)
             for i, (tt, c, cap) in enumerate(waves)]
     # one batch's walk: both waves
     results["ibwt_walk"] = {"max_abs_err": max(w["max_abs_err"] for w in walk),
                             "ms": sum(w["ms"] for w in walk),
-                            "plain_ms": sum(w["plain_ms"] for w in walk)}
+                            "plain_ms": sum(w["plain_ms"] for w in walk),
+                            "bound_ms": sum(w["bound_ms"] for w in walk),
+                            "bound_by": "bytes", "library_ms": None}
     del waves, walk
 
     # ---- phase 4: the slice through the port's entry point

@@ -156,14 +156,107 @@ def test_mtf_kernels_match_plain(cuda_device, runs):
     valid = np.arange(4096)[None, :] < ns[:, None]
     seqm = torch.from_numpy(np.where(valid, seq, mk.PAD_SYM).reshape(-1, 256)
                             ).to(cuda_device)
-    last = mk.tile_last(seqm)
-    assert torch.equal(last, mk.tile_last_plain(seqm))
+    last = mk.tile_last(seqm, 16)
+    assert torch.equal(last, mk.tile_last_plain(seqm, 16))
     lx = mk.carries(last, 3).contiguous()
     assert torch.equal(mk.rank(seqm, lx), mk.rank_plain(seqm, lx))
     cpu = mk.mtf_ranks(torch.from_numpy(seq), torch.from_numpy(valid))
     dev = mk.mtf_ranks(torch.from_numpy(seq).to(cuda_device),
                        torch.from_numpy(valid).to(cuda_device))
     assert torch.equal(dev.cpu(), cpu)
+
+
+def _assert_mtf_kernels_exact(seqm, B):
+    """tile_last and rank on the card equal their plain versions, with one
+    launch each."""
+    T = seqm.shape[0] // B
+    before = (mk.TILE_LAST.launches, mk.RANK.launches)
+    tl = mk.tile_last(seqm, T)
+    assert torch.equal(tl, mk.tile_last_plain(seqm, T))
+    lx = mk.carries(tl, B).contiguous()
+    got = mk.rank(seqm, lx)
+    exp = mk.rank_plain(seqm, lx)
+    assert (mk.TILE_LAST.launches, mk.RANK.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(got, exp)
+    return got
+
+
+def _edge_rows():
+    """Rows of 4 tiles: one symbol repeated (rank 0 throughout after its
+    first position); all 256 symbols once, then the same order again
+    (rank 255 at every position of the second pass); descending order;
+    runs of every symbol; PAD_SYM tails inside and at the end of tiles."""
+    ar = np.arange(256, dtype=np.int32)
+    rows = [np.full(4 * 256, 9, np.int32),
+            np.tile(ar, 4),
+            np.tile(ar[::-1], 4),
+            np.repeat(ar, 4),
+            np.concatenate([np.tile(ar[:17], 20)[:300],
+                            np.full(724, mk.PAD_SYM, np.int32)]),
+            np.where(np.arange(1024) % 256 < 200, np.tile(ar, 4) % 7,
+                     mk.PAD_SYM).astype(np.int32)]
+    return np.stack(rows)
+
+
+@pytest.mark.cuda
+def test_mtf_kernels_edge_tiles(cuda_device):
+    rows = _edge_rows()
+    B = rows.shape[0]
+    seqm = torch.from_numpy(rows.reshape(-1, 256)).to(cuda_device)
+    got = _assert_mtf_kernels_exact(seqm, B).cpu().numpy().reshape(B, -1)
+    assert not got[0, 1:].any()
+    assert (got[1, 256:] == 255).all() and (got[2, 256:] == 255).all()
+    assert not got[4, 300:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "runs", "few"])
+def test_mtf_kernels_main_shape(cuda_device, pattern):
+    """13 rows x 3,520 tiles: the -9 batch's shape."""
+    rng = np.random.default_rng(["random", "runs", "few"].index(pattern))
+    B, T = 13, 3520
+    if pattern == "random":
+        seq = rng.integers(0, 256, (B, T * 256)).astype(np.int32)
+    elif pattern == "runs":
+        seq = np.repeat(rng.integers(0, 256, (B, T * 256 // 64)), 64, axis=1)
+    else:
+        seq = rng.integers(0, 3, (B, T * 256))
+    seq = seq.astype(np.int32)
+    seq[:, 900_000:] = mk.PAD_SYM
+    seqm = torch.from_numpy(seq.reshape(-1, 256)).to(cuda_device)
+    _assert_mtf_kernels_exact(seqm, B)
+
+
+@pytest.mark.cuda
+def test_mtf_kernels_real_level9_batch(cuda_device):
+    """13 rows of real -9 blocks (chip_smoke.py's corpus), through the
+    port's BWT, as mtf_rle2_batched hands them to the kernels."""
+    import chip_smoke
+    from bzip2_tpu_torch import engine
+    from bzip2_tpu_torch.ops.bwt import bwt_batched
+    data = chip_smoke.corpus(13 * 900_000, chip_smoke.SEED)
+    blocks = engine.split_blocks(data, 9)[:13]
+    N = engine._block_pad_size(9)
+    arr, ns, uses, _ = engine.batch_arrays(blocks, 13, N)
+    bt, nt, ut = engine.stage_from_numpy((arr, ns, uses), cuda_device)
+    last, _, _ = bwt_batched(bt, nt)
+    valid = torch.arange(N, device=cuda_device)[None, :] < nt[:, None]
+    ui = ut.to(torch.int32)
+    remap = torch.cumsum(ui, 1, dtype=torch.int32) - ui
+    seq = torch.gather(remap, 1, last.to(torch.int64))
+    seqm = torch.where(valid, seq, mk.PAD_SYM).reshape(-1, 256).contiguous()
+    got = _assert_mtf_kernels_exact(seqm, 13)
+    assert (got == 0).float().mean().item() > 0.3
+
+
+@pytest.mark.cuda
+def test_mtf_rank_rejects_misaligned_carries(cuda_device):
+    seqm = torch.zeros((2, 256), dtype=torch.int32, device=cuda_device)
+    lx = torch.zeros(2 * 256 + 1, dtype=torch.int32,
+                     device=cuda_device)[1:].reshape(2, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        mk.rank(seqm, lx)
 
 
 @pytest.mark.cuda
@@ -177,7 +270,7 @@ def test_group_hist_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_engine_on_card_golden(cuda_device):
-    from bzip2_tpu import api, native
+    from bzip2_tpu_torch import api, native
     from bzip2_tpu_torch.engine import Engine
     if not native.available():
         pytest.skip("needs the native heap builder")
@@ -237,7 +330,7 @@ def _assert_walks_match(waves):
 def test_ibwt_walk_kernel_matches_plain_level9(cuda_device, monkeypatch):
     """Both waves at the -9 decoder's shapes: 8 blocks of up to 900,000,
     (8, 4096) lanes with cap 440, then (8, 1024) lanes with cap 6600."""
-    from bzip2_tpu import native
+    from bzip2_tpu_torch import native
     _, comp = _realistic_level9()
     buf = np.frombuffer(comp, np.uint8)
     pbs, pos = [], 32

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 import bzip2_tpu_torch
-from bzip2_tpu import api, native
-from bzip2_tpu.api import DataError, DataErrorMagic, UnexpectedEOF
+from bzip2_tpu import api as japi
 from bzip2_tpu_torch import decoder as dmod
+from bzip2_tpu_torch import native
+from bzip2_tpu_torch.api import (BZ2Error, DataError, DataErrorMagic,
+                                 UnexpectedEOF)
 from bzip2_tpu_torch.ops import decode as TD
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,7 +56,7 @@ def test_tail_and_multistream(golden):
     out, consumed = with_tail(comp + b"garbagegarbage", multi_stream=True)
     assert out == data and consumed == len(comp)
     comp2 = stdlib_bz2.compress(b"tail member", 1)
-    # the default, as for bzip2_tpu.api: the first member only
+    # the default, as for the reference's api: the first member only
     assert with_tail(comp + comp2) == (data, len(comp))
     assert with_tail(comp + comp2, multi_stream=False) == (data, len(comp))
     out, consumed = with_tail(comp + comp2, multi_stream=True)
@@ -77,17 +79,18 @@ def test_port_encoder_output(golden):
 
 
 def _native_outcome(data):
+    """The reference host decoder's bytes, or the name of its error."""
     try:
-        return api.decompress(data, backend="native")
-    except api.BZ2Error as e:
-        return type(e)
+        return japi.decompress(data, backend="native")
+    except japi.BZ2Error as e:
+        return type(e).__name__
 
 
 def _port_outcome(data):
     try:
         return decompress(data)
-    except api.BZ2Error as e:
-        return type(e)
+    except BZ2Error as e:
+        return type(e).__name__
 
 
 def test_corrupt_input_gives_host_errors(golden):
@@ -104,7 +107,7 @@ def test_corrupt_input_gives_host_errors(golden):
                      (comp[: len(comp) // 2], UnexpectedEOF)):
         with pytest.raises(err):
             decompress(bad)
-        assert _native_outcome(bad) is err
+        assert _native_outcome(bad) == err.__name__
 
 
 def _realistic_level9_stream(golden, n_bytes=2_030_000):
@@ -161,10 +164,9 @@ def test_randomised_block_goes_to_host(monkeypatch, golden):
 
 def test_device_error_propagates_without_host_fallback(golden, monkeypatch):
     """A failing device stage raises to the caller; the stream is never
-    re-decoded by native.decompress."""
-    calls = []
-    monkeypatch.setattr(native, "decompress",
-                        lambda *a, **k: calls.append(a))
+    re-decoded by a whole-stream host decoder: the port's native binds
+    none."""
+    assert not hasattr(native, "decompress")
 
     def broken(*a, **k):
         raise RuntimeError("device stage failed")
@@ -173,7 +175,6 @@ def test_device_error_propagates_without_host_fallback(golden, monkeypatch):
     comp = stdlib_bz2.compress(golden[1][0], 1)
     with pytest.raises(RuntimeError, match="device stage failed"):
         decompress(comp)
-    assert calls == []
 
 
 def test_default_device_is_cuda():

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
-from bzip2_tpu import api, native
+from bzip2_tpu import api as japi
 from bzip2_tpu import engine as jeng
+from bzip2_tpu import native as jnative
 from bzip2_tpu.constants import MAX_ALPHA_SIZE as A
 from bzip2_tpu.constants import N_ITERS
 from bzip2_tpu.ops.groupsearch import group_iter as jax_group_iter
+from bzip2_tpu_torch import api, native
 from bzip2_tpu_torch import engine as teng
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -45,7 +47,7 @@ def jax_stages():
     B = blocks.shape[0]
     for _ in range(N_ITERS):
         sel, freq6 = jax_group_iter(hist_bf, lens, invalid)
-        lens = jnp.asarray(native.make_code_lengths_batch(
+        lens = jnp.asarray(jnative.make_code_lengths_batch(
             np.asarray(freq6).reshape(B * 6, A), alpha6).reshape(B, 6, A))
     n_words = jeng._words_for(blocks.shape[1])
     words, nbits = jax.jit(lambda *a: jeng.encode_post(*a, n_words=n_words))(
@@ -114,7 +116,7 @@ def test_engine_one_and_a_half_blocks(compress, rng):
     teng.reset_telemetry()
     out = compress(data, 1)
     assert out == stdlib_bz2.compress(data, 1)
-    assert api.decompress(out) == data
+    assert japi.decompress(out) == data
     assert teng.SHARE["dev_blocks"] == 2
     assert set(teng.STAGE_WALL) == {"pre(bwt+mtf+hist)", "4xiter+heap",
                                     "post+fetch"}

@@ -43,14 +43,25 @@ def test_mtf_ranks_ragged_width_matches_oracle(rng):
 
 
 def test_tile_last_plain():
-    seqm = np.full((2, 256), mk.PAD_SYM, np.int32)
+    # two rows of three tiles: slot 0 the seeds, slot t+1 tile t's last
+    # occurrences as row indices, -2^30 where absent; the last tile of a
+    # row is never anyone's carry
+    seqm = np.full((6, 256), mk.PAD_SYM, np.int32)
     seqm[0, :5] = [3, 1, 3, 0, 255]
     seqm[1, 200] = 7
-    got = mk.tile_last_plain(torch.from_numpy(seqm)).numpy()
-    exp = np.full((2, 256), -1, np.int16)
-    exp[0, [3, 1, 0, 255]] = [2, 1, 3, 4]
-    exp[1, 7] = 200
-    assert got.dtype == np.int16 and np.array_equal(got, exp)
+    seqm[2, 9] = 7
+    seqm[4, 0] = 1
+    got = mk.tile_last_plain(torch.from_numpy(seqm), 3).numpy()
+    seeds = -(np.arange(256, dtype=np.int32) + 1)
+    exp = np.full((6, 256), -(1 << 30), np.int32)
+    exp[[0, 3]] = seeds
+    exp[1, [3, 1, 0, 255]] = [2, 1, 3, 4]
+    exp[2, 7] = 256 + 200
+    exp[5, 1] = 256
+    assert got.dtype == np.int32 and np.array_equal(got, exp)
+    lx = mk.carries(torch.from_numpy(got), 2).numpy()
+    assert np.array_equal(lx[0], seeds) and lx[2, 7] == 456 and lx[2, 3] == 2
+    assert np.array_equal(lx[3], seeds) and lx[5, 1] == 256
 
 
 @pytest.mark.parametrize("N", [2048, 8192])
