@@ -1,16 +1,27 @@
 """bzip2_tpu_torch: the bzip2 block encoder and decoder on PyTorch and CUDA.
 
-The port of ``bzip2_tpu``'s hybrid block encoder and device block decoder
-to a PyTorch device, with the four TPU kernels of the encoder (the BWT's
-pair sort, the two MTF rank kernels and the group histogram) and the
-decoder's inverse-BWT walk written by hand in CUDA C++ for Hopper
-(``csrc/``, built at first use by ``_build``).  The host side (stream
-framing in ``api``, ``rle1``, ``crc``, ``bitstream``, the ``periodic``
-origPtr corrector and the C++ runtime in ``native``) is the port's own copy
-of ``bzip2_tpu``'s.  This package imports neither JAX nor ``bzip2_tpu``.
+The port of ``bzip2_tpu``'s encode engine and device block decoder to a
+PyTorch device.  The engine (``engine.Engine``) runs the reference's
+work-stealing scheduler: device workers, each on its own CUDA stream,
+encode batches of blocks from the front of the stream while native host
+workers steal single blocks from the tail.  A device batch runs in one of
+two modes: "hybrid" (the default: device stages with the four Huffman
+rebuilds on the host) or "fused" (the whole block encoder on the device).
+``use_device=False`` encodes on the host alone.  The TPU kernels of the
+encoder (the BWT's pair sort, the two MTF rank kernels and the group
+histogram), the fused mode's Huffman code lengths and the decoder's
+inverse-BWT walk are written by hand in CUDA C++ for Hopper (``csrc/``,
+built at first use by ``_build``).  The host side (stream framing in
+``api``, ``rle1``, ``crc``, ``bitstream``, the ``periodic`` origPtr
+corrector, ``tracing``, ``hostmem`` and the C++ runtime in ``native``) is
+the port's own copy of ``bzip2_tpu``'s.  This package imports neither JAX
+nor ``bzip2_tpu``.
 """
 
 __version__ = "0.1.0"
+
+from .tracing import set_verbosity, profile_trace, enable_metrics
+from .tracing import collect as collect_metrics
 
 
 def _register_gpu(engine_kwargs: dict) -> None:
@@ -23,8 +34,10 @@ def _register_gpu(engine_kwargs: dict) -> None:
 def enable_gpu_backend(**engine_kwargs) -> None:
     """Register the port's engine as block-encoder backend "gpu" for
     ``bzip2_tpu_torch.api.compress`` and make it the default.
-    ``engine_kwargs`` go to :class:`bzip2_tpu_torch.engine.Engine`
-    (``device`` defaults to ``"cuda"``)."""
+    ``engine_kwargs`` go to :class:`bzip2_tpu_torch.engine.Engine`:
+    ``batch_size``, ``mode`` (None = "hybrid", or "fused"), ``pipeline``
+    (default 2), ``host_workers`` (None = 1), ``use_device`` (default True)
+    and ``device`` (default ``"cuda"``)."""
     from . import api
 
     _register_gpu(engine_kwargs)
@@ -35,8 +48,9 @@ def compress(data, level: int = 9, **engine_kwargs) -> bytes:
     """Compress ``data`` into one standard .bz2 stream, every block encoded
     by the port's engine.  The stream framing, RLE1 split and periodic
     origPtr corrector are ``bzip2_tpu_torch.api``'s; this (re)registers
-    backend "gpu" with ``engine_kwargs`` and does not change the default
-    backend."""
+    backend "gpu" with ``engine_kwargs`` (as :func:`enable_gpu_backend`
+    takes them; ``host_workers=0`` keeps every block on the device) and
+    does not change the default backend."""
     from . import api
 
     _register_gpu(engine_kwargs)

@@ -29,6 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _lock = threading.Lock()
+#: guards the launch counters: the engine's device workers launch from
+#: several threads
+_count_lock = threading.Lock()
 
 
 def _sources() -> list[str]:
@@ -127,7 +130,8 @@ class Kernel:
         if rc != 0:
             msg = _load().bz2t_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1
 
 
 def reset_launches() -> None:

@@ -44,14 +44,10 @@ def register_block_encoder(name: str, fn) -> None:
     """Register a batched block encoder: fn(list[RLE1Block], level) ->
     list[(uint8 array, nbits)] of per-block bit payloads.
 
-    The encoder is wrapped with the exactly-periodic origPtr corrector
-    (``periodic.patch_payloads``), so its output equals stock bzip2's on
-    periodic blocks too."""
-
-    def wrapped(blocks, level, _fn=fn):
-        return periodic.patch_payloads(_fn(blocks, level), blocks, level)
-
-    _BLOCK_ENCODERS[name] = wrapped
+    ``compress`` wraps the encoder with the exactly-periodic origPtr
+    corrector (``periodic.patch_payloads``), so its output equals stock
+    bzip2's on periodic blocks too."""
+    _BLOCK_ENCODERS[name] = fn
 
 
 def set_default_backend(name: str | None) -> None:
@@ -72,9 +68,18 @@ def compress(data, level: int = 9, backend: str | None = None) -> bytes:
     if encoder is None:
         raise ValueError(f"unknown backend {backend!r} (none registered: "
                          "call bzip2_tpu_torch.enable_gpu_backend())")
+    return compress_with(encoder, data, level)
 
+
+def compress_with(encoder, data, level: int = 9) -> bytes:
+    """One .bz2 stream of ``data``: its RLE1 blocks through the block
+    encoder ``encoder(blocks, level)`` and the periodic corrector, between
+    the stream header and the end-of-stream magic and combined CRC."""
+    if not 1 <= level <= 9:
+        raise ValueError("level must be 1..9")
     blocks = _rle1.encode_blocks(data, level)
-    payloads = encoder(blocks, level) if blocks else []
+    payloads = periodic.patch_payloads(encoder(blocks, level), blocks,
+                                       level) if blocks else []
 
     w = BitWriter()
     w.write(C.HDR_B, 8)

@@ -1,8 +1,9 @@
-"""Batched block encoder on a PyTorch device (port of the hybrid flow of
+"""Batched block encoder on a PyTorch device (port of
 ``bzip2_tpu/engine.py``).
 
-Per batch of RLE1 blocks:
+Two ways to encode a batch of RLE1 blocks (``Engine(mode=...)``):
 
+hybrid (default)
   encode_pre   BWT, MTF+RLE2, per-group histograms,     device
                initial tables
   4 x          group_iter (cost/frequency matmuls,       device
@@ -10,27 +11,35 @@ Per batch of RLE1 blocks:
                lengths
   encode_post  canonical codes, selector MTF, field      device
                emission, bit packing
+fused
+  encode_batch_device: the whole encoder on the device, the four Huffman
+  rebuilds in the ``huffman_lengths`` kernel; one fetch a batch.
 
 ``Engine.encode_payloads`` is a block encoder for the port's
-``api.register_block_encoder``: the api splits the input into
-RLE1 blocks, applies the periodic origPtr corrector, bit-splices the
-payloads and frames the stream.  Every block goes to the device; blocks
-are batched in order and the last batch is padded with dummy lanes
-(1-byte blocks) to the batch size.
+``api.register_block_encoder`` (the api splits the input into RLE1 blocks,
+applies the periodic origPtr corrector, bit-splices the payloads and frames
+the stream).  It is the reference's work-stealing scheduler: ``pipeline``
+device workers claim batches from the front of the block list while
+``host_workers`` threads steal single blocks from the tail and encode them
+with the native C++ block encoder; an adaptive handoff lets the device
+decline a batch the host pool would finish sooner.  Results come back in
+block order.  ``use_device=False`` encodes every block on the host.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import numpy as np
 import torch
 
 from . import constants as C
-from . import native, rle1
+from . import hostmem, native, rle1, tracing
+from .api import compress_with
 from .ops.bitpack import pack_fields
 from .ops.bwt import bwt_batched
-from .ops.groupsearch import (build_group_hist, group_iter,
-                              initial_tables_batched, n_groups_batched,
+from .ops.groupsearch import (group_iter, group_search_batched, search_init,
                               selector_mtf)
 from .ops.huffman import assign_codes_lanes
 from .ops.mtf import mtf_rle2_batched
@@ -39,19 +48,27 @@ A = C.MAX_ALPHA_SIZE
 MTF_TILE = 2048
 
 #: cumulative encode stage walls (seconds); the blocks handed to the
-#: engine and the blocks the device encoded
+#: engine, those the device and the host workers encoded, and the batches
+#: the device declined.  Updated under _TELEM_LOCK by every worker.
 STAGE_WALL: dict = {}
-SHARE: dict = {"blocks": 0, "dev_blocks": 0}
+SHARE: dict = {"blocks": 0, "dev_blocks": 0, "host_blocks": 0, "declines": 0}
+_TELEM_LOCK = threading.Lock()
 
 
 def reset_telemetry() -> None:
-    STAGE_WALL.clear()
-    SHARE["blocks"] = 0
-    SHARE["dev_blocks"] = 0
+    with _TELEM_LOCK:
+        STAGE_WALL.clear()
+        SHARE.update(blocks=0, dev_blocks=0, host_blocks=0, declines=0)
 
 
 def _stage_add(key: str, wall: float) -> None:
-    STAGE_WALL[key] = STAGE_WALL.get(key, 0.0) + wall
+    with _TELEM_LOCK:
+        STAGE_WALL[key] = STAGE_WALL.get(key, 0.0) + wall
+
+
+def _share_add(key: str, k: int = 1) -> None:
+    with _TELEM_LOCK:
+        SHARE[key] += k
 
 
 def _emit_fields(in_use, crc, orig_ptr, mtfv, n_mtf, n_in_use, n_groups,
@@ -136,20 +153,30 @@ def _emit_fields(in_use, crc, orig_ptr, mtfv, n_mtf, n_in_use, n_groups,
     return torch.cat(fields_v, dim=1), torch.cat(fields_l, dim=1)
 
 
+def encode_batch_device(blocks, n, in_use, crc, n_words: int):
+    """The whole block encoder on the device (fused mode): (B, N) uint8
+    padded RLE1 blocks, (B,) lengths, (B, 256) bool, (B,) int64 CRCs ->
+    (words (B, n_words) int64 of uint32 values, nbits (B,))."""
+    last, orig_ptr, _ = bwt_batched(blocks, n)
+    mtfv, n_mtf, n_in_use = mtf_rle2_batched(last, n, in_use)
+    (n_groups, n_selectors, selectors, sel_mtf, lens,
+     codes) = group_search_batched(mtfv, n_mtf, n_in_use)
+    vals, flens = _emit_fields(in_use, crc, orig_ptr, mtfv, n_mtf, n_in_use,
+                               n_groups, n_selectors, sel_mtf, lens, codes,
+                               selectors)
+    return pack_fields(vals, flens, n_words)
+
+
 def encode_pre(blocks, n, in_use):
     """(B, N) uint8 blocks, (B,) lengths, (B, 256) bool -> the inter-stage
     state (mtfv, n_mtf, n_in_use, orig_ptr, n_groups, lens0, hist,
     table_invalid); hist is float32 for the group_iter matmuls."""
     last, orig_ptr, _ = bwt_batched(blocks, n)
     mtfv, n_mtf, n_in_use = mtf_rle2_batched(last, n, in_use)
-    n_groups = n_groups_batched(n_mtf)
-    hist = build_group_hist(mtfv, n_mtf)
-    freq = hist.sum(dim=1, dtype=torch.int32)
-    lens0 = initial_tables_batched(freq, n_mtf, n_in_use + 2, n_groups)
-    table_invalid = (torch.arange(6, device=blocks.device)[None, :]
-                     >= n_groups[:, None])
-    return (mtfv, n_mtf, n_in_use, orig_ptr, n_groups, lens0,
-            hist.to(torch.float32), table_invalid)
+    n_groups, hist, lens0, table_invalid = search_init(mtfv, n_mtf,
+                                                       n_in_use + 2)
+    return (mtfv, n_mtf, n_in_use, orig_ptr, n_groups, lens0, hist,
+            table_invalid)
 
 
 def encode_post(mtfv, n_mtf, n_in_use, in_use, crc, orig_ptr, n_groups,
@@ -211,8 +238,8 @@ def split_blocks(data, level: int) -> list:
 def batch_arrays(blocks: list, bsz: int, N: int) -> tuple:
     """Up to ``bsz`` RLE1 blocks -> the padded numpy inputs of one batch
     (blocks (bsz, N) uint8, lengths, in_use (bsz, 256), CRCs).  Lanes past
-    ``len(blocks)`` are dummy 1-byte blocks of 0x00, so every batch of a
-    stream has one shape."""
+    ``len(blocks)`` are dummy 1-byte blocks of 0x00.  The engine passes
+    ``bsz == len(blocks)``: a tail batch runs with its own lanes only."""
     arr = np.zeros((bsz, N), np.uint8)
     ns = np.ones(bsz, np.int32)
     uses = np.zeros((bsz, 256), bool)
@@ -233,30 +260,114 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+#: the device workers' CUDA streams, per device, shared by every Engine of
+#: the process: the caching allocator reuses a block only on the stream
+#: that freed it, so streams made per engine or per call would each grow a
+#: pool of their own.  Two threads on one stream stay correct: the stream
+#: orders their work.
+_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def _worker_streams(device: torch.device, n: int) -> list:
+    with _STREAMS_LOCK:
+        pool = _STREAMS.setdefault(device, [])
+        while len(pool) < n:
+            pool.append(torch.cuda.Stream(device))
+        return pool[:n]
+
+
+def _fetch(words, nbits) -> tuple:
+    """One fetch of the bit counts, then one of the used words: (words
+    uint32 (B, k) numpy cut to the longest block, nbits (B,) numpy)."""
+    nbits_np = nbits.cpu().numpy()
+    need = int((int(nbits_np.max()) + 31) // 32)
+    return words[:, :need].cpu().numpy().astype(np.uint32), nbits_np
+
+
 class Engine:
-    """Batched block encoder: device stages with the host's exact-heap
-    Huffman lengths (the port's ``native``) between them."""
+    """Batched block encoder with the reference's work-stealing scheduler.
+
+    ``mode`` "hybrid" (the default, ``None``): device stages with the
+    host's exact-heap Huffman lengths between them; "fused": the whole
+    encoder on the device.  ``pipeline`` device workers (default 2) and
+    ``host_workers`` native host encoders (default 1) share a stream's
+    blocks; ``host_workers=0`` keeps every block on the device.
+    ``use_device=False`` encodes on the host alone and never touches the
+    device.  The native runtime is required in every mode.
+    """
 
     #: target bytes of input per device batch when batch_size is automatic
     AUTO_BATCH_BYTES = 12 << 20
 
-    def __init__(self, batch_size: int | None = None, device="cuda"):
-        self.device = _resolve_device(device)
+    def __init__(self, batch_size: int | None = None, mode: str | None = None,
+                 pipeline: int = 2, host_workers: int | None = None,
+                 use_device: bool = True, device="cuda"):
+        # allocator retention is an Engine-scoped policy, not an import-time
+        # side effect
+        hostmem.set_malloc_retention()
         if not native.available():
-            raise RuntimeError("the hybrid encoder needs the native host "
-                               "runtime (bzip2_tpu_torch.native), which did not build")
+            raise RuntimeError("the engine needs the native host runtime "
+                               "(bzip2_tpu_torch.native), which did not build")
+        mode = "hybrid" if mode is None else mode
+        if mode not in ("hybrid", "fused"):
+            raise ValueError(f"mode must be 'hybrid' or 'fused', not {mode!r}")
+        self.mode = mode
         self.batch_size = batch_size
+        self.pipeline = max(1, pipeline)
+        self.host_workers = 1 if host_workers is None else max(0, host_workers)
+        self.use_device = use_device
+        # host-only mode never touches the device, so it is not checked
+        self.device = (_resolve_device(device) if use_device
+                       else torch.device(device))
+        #: scheduler rates, kept across streams so that a fresh stream
+        #: starts calibrated
+        self._sched = {"host_done": 0, "host_time": 0.0, "dev_wall": 0.0,
+                       "declines": 0}
 
     def _batch_size_for(self, level: int) -> int:
         if self.batch_size is not None:
             return self.batch_size
         return max(1, self.AUTO_BATCH_BYTES // (C.BLOCK_UNIT * level))
 
+    @contextlib.contextmanager
+    def _worker_context(self, i: int):
+        """Device worker ``i`` runs on its own CUDA stream.  The kernels
+        follow it (``_build.stream_of`` reads the thread's current stream),
+        and a ``.cpu()`` waits for its own stream only, so one worker's host
+        round trips overlap another's device stages.  A batch's tensors are
+        made and used inside its worker, on that stream; the stream first
+        waits for the work already queued on the device's current stream.
+        On the CPU there are no streams."""
+        if self.device.type != "cuda":
+            yield
+            return
+        s = _worker_streams(self.device, i + 1)[i]
+        with torch.cuda.device(self.device):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                yield
+
     def encode_batch(self, level, arr, ns, uses, crcs):
-        """One device batch of padded numpy inputs -> (words uint32 (B, k)
-        numpy, nbits int64 (B,) numpy), words cut to the longest block."""
+        """One device batch of numpy inputs -> (words uint32 (B, k) numpy,
+        nbits int64 (B,) numpy), words cut to the longest block."""
+        if self.mode == "fused":
+            return self._encode_fused(arr, ns, uses, crcs)
+        return self._encode_hybrid(arr, ns, uses, crcs)
+
+    def _encode_fused(self, arr, ns, uses, crcs):
+        """One device call and one fetch a batch; no host heap."""
+        t0 = time.perf_counter()
+        blocks, n, in_use, crc = stage_from_numpy((arr, ns, uses, crcs),
+                                                  self.device)
+        words, nbits = encode_batch_device(blocks, n, in_use, crc,
+                                           _words_for(arr.shape[1]))
+        out = _fetch(words, nbits)
+        _stage_add("fused+fetch", time.perf_counter() - t0)
+        return out
+
+    def _encode_hybrid(self, arr, ns, uses, crcs):
         dev = self.device
-        N = arr.shape[1]
         B = arr.shape[0]
         t0 = time.perf_counter()
         blocks, n, in_use, crc = stage_from_numpy((arr, ns, uses, crcs), dev)
@@ -274,36 +385,167 @@ class Engine:
         t2 = time.perf_counter()
         words, nbits = encode_post(mtfv, n_mtf, n_in_use, in_use, crc,
                                    orig_ptr, n_groups, selectors, lens,
-                                   _words_for(N))
-        nbits_np = nbits.cpu().numpy()
-        need = int((int(nbits_np.max()) + 31) // 32)
-        words_np = words[:, :need].cpu().numpy().astype(np.uint32)
+                                   _words_for(arr.shape[1]))
+        out = _fetch(words, nbits)
         t3 = time.perf_counter()
         _stage_add("pre(bwt+mtf+hist)", t1 - t0)
         _stage_add("4xiter+heap", t2 - t1)
         _stage_add("post+fetch", t3 - t2)
-        return words_np, nbits_np
+        return out
 
     def encode_payloads(self, blocks: list, level: int) -> list:
         """Encode RLE1 blocks into per-block (MSB-first bytes, nbits)
-        payloads, batch by batch in block order."""
+        payloads.
+
+        Work-stealing scheduler: ``pipeline`` device workers claim batches
+        from the front of the block list while ``host_workers`` threads
+        (native C++ encoder, GIL released) steal single blocks from the
+        tail; both meet in the middle.  Results are in block order.  The
+        first error of any worker is raised after every worker has stopped;
+        nothing is retried elsewhere."""
         L = len(blocks)
         if L == 0:
             return []
         N = _block_pad_size(level)
-        primary = self._batch_size_for(level)
-        # a stream of one or two blocks runs in a 2-lane batch instead of
-        # padding a whole primary batch with dummy lanes
-        bsz = 2 if (L <= 2 and primary > 2) else primary
-        SHARE["blocks"] += L
-        results: list = []
-        for s in range(0, L, bsz):
-            chunk = blocks[s:s + bsz]
-            words, nbits = self.encode_batch(level,
-                                             *batch_arrays(chunk, bsz, N))
-            SHARE["dev_blocks"] += len(chunk)
-            for j in range(len(chunk)):
+        bsz = self._batch_size_for(level)
+        _share_add("blocks", L)
+        results: list = [None] * L
+        lock = threading.Lock()
+        state = {"lo": 0, "hi": L, "dev_inflight": 0}
+        sched = self._sched  # measured rates, persisted across calls
+        errors: list = []
+        n_host = self.host_workers if self.use_device \
+            else max(1, self.host_workers)
+
+        def claim_front():
+            """Device batch claim.  Adaptive tail handoff: once both rates
+            are known, the device declines a batch whenever the host pool
+            alone would finish the remainder sooner than the device's
+            backlog (in-flight batches share the one card) plus this batch;
+            otherwise a late device batch gates the whole stream while the
+            host sits idle."""
+            with lock:
+                remaining = state["hi"] - state["lo"]
+                if (remaining > 0 and n_host and sched["dev_wall"]
+                        and sched["host_done"] >= 3):
+                    host_rate = (sched["host_done"] / sched["host_time"]
+                                 * n_host)
+                    backlog = (state["dev_inflight"] + 1) * sched["dev_wall"]
+                    if remaining <= host_rate * backlog * 0.9:
+                        # Starvation guard: a dev_wall estimate poisoned
+                        # high by a one-off stall would make the device
+                        # decline forever; the min-biased estimate can
+                        # only correct if batches run.  Probe with one
+                        # batch when the device is idle and the stream is
+                        # long enough that a slow probe cannot gate it.
+                        sched["declines"] += 1
+                        _share_add("declines")
+                        if not (state["dev_inflight"] == 0
+                                and remaining > 5 * bsz
+                                and sched["declines"] >= 8):
+                            return 0, 0
+                        sched["declines"] = 0
+                take = min(bsz, remaining)
+                s = state["lo"]
+                state["lo"] += take
+                if take:
+                    state["dev_inflight"] += 1
+                return s, take
+
+        def claim_back():
+            with lock:
+                if state["hi"] <= state["lo"]:
+                    return -1
+                state["hi"] -= 1
+                return state["hi"]
+
+        def record_block(k, nbit):
+            blk = blocks[k]
+            raw = blk.raw_span[1] - blk.raw_span[0]
+            tracing.vlog(2, "    block %d: crc 0x%08x, in %d, out %d bits"
+                         " (%.3f bits/byte)", k, blk.crc, raw, nbit,
+                         nbit / max(raw, 1))
+            tracing.record("block", index=k, crc=blk.crc, raw_bytes=raw,
+                           rle1_bytes=int(blk.data.size), out_bits=nbit)
+
+        def run_batch(s, take):
+            # the batch has exactly ``take`` lanes: nothing is compiled per
+            # shape, so a tail batch needs no dummy lanes
+            chunk = blocks[s:s + take]
+            t0 = time.perf_counter()
+            with tracing.span(f"batch[{s}:{s + take}]"):
+                words, nbits = self.encode_batch(
+                    level, *batch_arrays(chunk, take, N))
+            wall = time.perf_counter() - t0
+            with lock:
+                # min-biased estimate of the device batch wall: a queued or
+                # cold batch reports an inflated wall, and an estimate
+                # poisoned high starves the device; a fast batch resets the
+                # belief at once while slow ones drag it up gently
+                if not sched["dev_wall"] or wall < sched["dev_wall"]:
+                    sched["dev_wall"] = wall
+                else:
+                    sched["dev_wall"] = 0.8 * sched["dev_wall"] + 0.2 * wall
+                state["dev_inflight"] -= 1
+            _share_add("dev_blocks", take)
+            for j in range(take):
                 nbit = int(nbits[j])
                 by = words[j, :(nbit + 31) // 32].byteswap().view(np.uint8)
-                results.append((by[:(nbit + 7) // 8], nbit))
+                results[s + j] = (by[:(nbit + 7) // 8], nbit)
+                record_block(s + j, nbit)
+
+        def device_worker(i):
+            try:
+                with self._worker_context(i):
+                    while not errors:
+                        s, take = claim_front()
+                        if take == 0:
+                            return
+                        run_batch(s, take)
+            except BaseException as e:  # noqa: BLE001 -- re-raised after join
+                errors.append(e)
+
+        def host_worker():
+            try:
+                while not errors:
+                    k = claim_back()
+                    if k < 0:
+                        return
+                    blk = blocks[k]
+                    t0 = time.perf_counter()
+                    payload, nbits = native.encode_block(blk.data,
+                                                         blk.in_use, blk.crc)
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        sched["host_done"] += 1
+                        sched["host_time"] += dt
+                    _share_add("host_blocks")
+                    results[k] = (np.frombuffer(payload, np.uint8), nbits)
+                    record_block(k, nbits)
+            except BaseException as e:  # noqa: BLE001 -- re-raised after join
+                errors.append(e)
+
+        host_threads = [threading.Thread(target=host_worker)
+                        for _ in range(n_host)]
+        for t in host_threads:
+            t.start()
+        if self.use_device:
+            dev_threads = [threading.Thread(target=device_worker, args=(i,))
+                           for i in range(1, self.pipeline)]
+            for t in dev_threads:
+                t.start()
+            device_worker(0)
+            for t in dev_threads:
+                t.join()
+        else:
+            host_worker()   # the main thread joins the host pool
+        for t in host_threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        assert all(r is not None for r in results)
         return results
+
+    def compress(self, data, level: int = 9) -> bytes:
+        """One .bz2 stream of ``data``, every block through this engine."""
+        return compress_with(self.encode_payloads, data, level)

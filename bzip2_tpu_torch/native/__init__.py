@@ -2,7 +2,8 @@
 copy of ``bzip2_tpu/native/bz2tpu_host.cpp``).
 
 Binds only what the port calls: the CRC, the RLE1 split, the periodic
-origPtr replay, the exact-heap Huffman lengths, the decoder's per-block
+origPtr replay, the exact-heap Huffman lengths, the complete block encoder
+of the engine's host workers, the decoder's per-block
 light parse and the incremental block decoder for heals.  The library has
 a whole-stream decoder too; the port never binds it.  ``available()`` or
 the first bound call builds the library (``build.py``); a bound call
@@ -65,6 +66,10 @@ def _load():
             ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64]
         lib.bz2tpu_fallback_origptr.restype = ct.c_int64
         lib.bz2tpu_fallback_origptr.argtypes = [ct.c_void_p, ct.c_int32]
+        lib.bz2tpu_encode_block.restype = ct.c_int64
+        lib.bz2tpu_encode_block.argtypes = [
+            ct.c_void_p, ct.c_int32, ct.c_void_p, ct.c_uint32, ct.c_void_p,
+            ct.c_int64]
         from ..rand_table import RNUMS
         r = np.ascontiguousarray(RNUMS, dtype=np.int32)
         lib.bz2tpu_set_rnums(r.ctypes.data_as(ct.c_void_p))
@@ -136,6 +141,24 @@ def fallback_origptr(block) -> int:
     if op < 0:
         raise RuntimeError("fallback_origptr: invalid input")
     return op
+
+
+def encode_block(block, in_use, crc: int):
+    """Encode one RLE1 block (bytes + 256-bool used table + raw CRC) into
+    its bit payload with the complete native block encoder (the engine's
+    host workers).  Returns (payload bytes, nbits)."""
+    lib = _need()
+    buf = _u8(block)
+    use = np.ascontiguousarray(np.asarray(in_use), dtype=np.uint8)
+    out = np.empty(3 * buf.size + (1 << 16), np.uint8)
+    bits = lib.bz2tpu_encode_block(
+        buf.ctypes.data_as(ct.c_void_p), np.int32(buf.size),
+        use.ctypes.data_as(ct.c_void_p), np.uint32(crc & 0xFFFFFFFF),
+        out.ctypes.data_as(ct.c_void_p), out.size)
+    if bits < 0:
+        raise RuntimeError(f"native encode failed (rc={bits})")
+    nbits = int(bits)
+    return bytes(out[: (nbits + 7) // 8]), nbits
 
 
 def make_code_lengths_batch(freqs: np.ndarray, alphas: np.ndarray,

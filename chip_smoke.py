@@ -15,22 +15,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
      histogram take the first -9 encode batch (13 blocks); the walk
      kernel's inputs are the first decode batch's two waves, recorded from
      one decode of the -9 stream through bzip2_tpu_torch.decompress.
-     With --old-mtf, an earlier mtf_ranks.cu of the first design is built
-     into build/probe/ and its two kernels are timed on the same batch, in
-     turns with the current ones;
-  4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress:
-     the stream must equal bz2.compress(data, 9) and round-trip through
-     bz2.decompress, every block must go to the device and every kernel
-     must have been launched by that run;
-  5. one more compression under torch.profiler, with the host RLE1 split
-     timed apart: prints the device's busy share, the ops that take its
-     time, each hand kernel's device time and the peak device memory;
+     The Huffman-length kernel takes the 78 lanes of that batch's first
+     refinement pass and a set of skewed lanes that halve and retry, and is
+     timed beside the host heap of the hybrid path
+     (native.make_code_lengths_batch); the heap steps its inputs need and
+     its longest lane's serial chain of them are printed with it, since
+     that chain, not its bytes, limits it.  The sort is timed beside
+     torch.sort of its packed key at every shape.  With --old-mtf, an
+     earlier mtf_ranks.cu of the first design is built into build/probe/
+     and its two kernels are timed on the same batch, in turns with the
+     current ones;
+  4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress
+     in hybrid mode with one device worker and no host worker: the stream
+     must equal bz2.compress(data, 9) and round-trip through
+     bz2.decompress, every block must go to the device and every encode
+     kernel must have been launched by that run;
+  5. one more such compression under torch.profiler, with the host RLE1
+     split timed apart: prints the device's busy share, the ops that take
+     its time, each hand kernel's device time and the peak device memory;
   6. decode that -9 stream through bzip2_tpu_torch.decompress_with_tail
      (one warm-up, then the timed run): the bytes and the consumed length
      must be exact, every block decoded on the device, no block healed on
      the host, the walk kernel launched, and no whole-stream host decoder
-     bound by the port's native runtime; then a -1 stream of a 2 MB prefix and a two-member stream with
-     trailing garbage, and one more -9 decode under torch.profiler.
+     bound by the port's native runtime; then a -1 stream of a 2 MB
+     prefix and a two-member stream with trailing garbage, and one more -9
+     decode under torch.profiler;
+  7. the fused mode (mode="fused", host_workers=0) on the same data, after
+     one warm-up: bit-exact, round-trips, every block on the device, the
+     Huffman-length kernel launched 4 times a batch, every encode kernel
+     launched; prints the wall and the stage walls, and profiles one more
+     fused run;
+  8. the scheduler: phase 4's and phase 7's settings, two device workers
+     and no host worker, the defaults (two device workers, one host
+     worker) and use_device=False, each warmed up once, then timed in turns
+     for three rounds; every run bit-exact and round-tripped, device and
+     host blocks adding up to the stream's, the device runs launching every
+     encode kernel and the host-only runs none; prints each run's wall,
+     block split and declines and each setting's median, and profiles the
+     default setting once.
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
 """
@@ -58,6 +80,8 @@ REPLACES = {
     "group_hist": "bzip2_tpu/ops/mtf_pallas.py:77",
     "ibwt_walk": "bzip2_tpu/ops/decode.py:386 ibwt.wave (lax.while_loop; "
                  "no Pallas original)",
+    "huffman_lengths": "bzip2_tpu/ops/huffman.py:136 make_code_lengths_lanes "
+                       "(jax.vmap of lax loops; no Pallas original)",
 }
 SOURCES = {
     "sort_pairs": "bzip2_tpu_torch/csrc/sort_pairs.cu",
@@ -65,6 +89,7 @@ SOURCES = {
     "mtf_rank": "bzip2_tpu_torch/csrc/mtf_ranks.cu",
     "group_hist": "bzip2_tpu_torch/csrc/group_hist.cu",
     "ibwt_walk": "bzip2_tpu_torch/csrc/ibwt_walk.cu",
+    "huffman_lengths": "bzip2_tpu_torch/csrc/huffman_lengths.cu",
 }
 # the CUDA kernels each wrapper launches, as the profiler names them
 SYMBOLS = {
@@ -73,9 +98,15 @@ SYMBOLS = {
     "mtf_rank": ("rank_kernel",),
     "group_hist": ("group_hist_kernel",),
     "ibwt_walk": ("ibwt_walk_kernel",),
+    "huffman_lengths": ("huffman_lengths_kernel",),
 }
 ENCODE = ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist")
+FUSED = ENCODE + ("huffman_lengths",)
 DECODE = ("ibwt_walk",)
+#: the hybrid slice of phases 4 and 5: one device worker, every block on
+#: the device (the engine's defaults add a second worker and a host one)
+HYBRID = {"pipeline": 1, "host_workers": 0}
+ROUNDS = 3          # phase 8's rounds of runs in turns
 
 
 def _run(cmd: list[str]) -> str:
@@ -223,23 +254,12 @@ def print_profile(by_name: dict, kernels) -> None:
 def profile_slice(torch, data: bytes, expect: bytes) -> None:
     """Phase 5: the host RLE1 split alone, then one compression under
     torch.profiler."""
-    import bzip2_tpu_torch
     from bzip2_tpu_torch import engine
     t0 = time.perf_counter()
     engine.split_blocks(data, LEVEL)
-    split = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    out = []
-    wall, busy, by_name = profiled(
-        torch, lambda: out.append(bzip2_tpu_torch.compress(data, LEVEL)))
-    if out[0] != expect:
-        raise AssertionError("profiled stream differs from bz2.compress")
-    total = sum(ms for ms, _ in by_name.values())
-    print(f"phase 5: host rle1 split {split:.4f} s; profiled wall "
-          f"{wall:.1f} ms; device time {total:.1f} ms, busy {busy:.1f} ms "
-          f"= {100 * busy / wall:.1f}% of the wall; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print_profile(by_name, ENCODE)
+    print(f"phase 5: host rle1 split {time.perf_counter() - t0:.4f} s",
+          flush=True)
+    _profile_compress(torch, "hybrid", data, expect, HYBRID, ENCODE)
 
 
 def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
@@ -319,6 +339,267 @@ def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
           flush=True)
     print_profile(by_name, DECODE)
     return launches
+
+
+def heap_steps(freq: np.ndarray, alpha: np.ndarray) -> list:
+    """The dependent steps of each lane's heap build, as huffman_lengths.cu
+    takes them on this data: one per insert, extraction and merge, one per
+    level a key moves, over every attempt the halve-and-retry needs.
+    Returns [(steps, attempts)] a lane.  The depth walks are not counted,
+    so the count is a lower bound of the lane's serial chain."""
+    out = []
+    for row, a in zip(freq.tolist(), alpha.tolist()):
+        a = min(max(int(a), 0), 258)
+        leaf = [0] + [(f if f else 1) << 8 for f in row]
+        steps = 0
+        for attempt in range(25):
+            weight = leaf[:a + 1] + [0] * a
+            parent = [-1] * (2 * a + 1)
+            heap = [0] * (a + 2)
+            n, nodes = 0, a
+
+            def up(zz, node):
+                nonlocal steps
+                w = weight[node]
+                steps += 1
+                while zz > 1 and w < weight[heap[zz >> 1]]:
+                    heap[zz] = heap[zz >> 1]
+                    zz >>= 1
+                    steps += 1
+                heap[zz] = node
+
+            def pop():
+                nonlocal n, steps
+                top, tmp = heap[1], heap[n]
+                n -= 1
+                w, zz = weight[tmp], 1
+                steps += 1
+                while 2 * zz <= n:
+                    yy = 2 * zz
+                    if yy < n and weight[heap[yy + 1]] < weight[heap[yy]]:
+                        yy += 1
+                    if w < weight[heap[yy]]:
+                        break
+                    heap[zz] = heap[yy]
+                    zz = yy
+                    steps += 1
+                heap[zz] = tmp
+                return top
+
+            for i in range(1, a + 1):
+                n += 1
+                up(n, i)
+            while n > 1:
+                n1, n2 = pop(), pop()
+                nodes += 1
+                parent[n1] = parent[n2] = nodes
+                w1, w2 = weight[n1], weight[n2]
+                weight[nodes] = (((w1 & ~0xFF) + (w2 & ~0xFF))
+                                 | (1 + max(w1 & 0xFF, w2 & 0xFF)))
+                n += 1
+                up(n, nodes)
+            too_long = False
+            for i in range(1, a + 1):
+                d, p = 0, parent[i]
+                while p >= 0:
+                    d, p = d + 1, parent[p]
+                too_long |= d > 17
+            if not too_long or attempt == 24:
+                break
+            leaf = [0] + [(1 + (w >> 8) // 2) << 8 for w in leaf[1:]]
+        out.append((steps, attempt + 1))
+    return out
+
+
+def huffman_case(torch, name, hk, freq, alpha) -> dict:
+    """The kernel against its plain version on (freq, alpha).  Its bound
+    counts one 32-bit operation per heap step of this data (heap_steps);
+    the longest lane's steps are the serial chain that limits it."""
+    steps = heap_steps(freq.cpu().numpy(), alpha.cpu().numpy())
+    total = sum(s for s, _ in steps)
+    res = compare(torch, name, hk.make_code_lengths_lanes,
+                  hk.make_code_lengths_lanes_plain, (freq, alpha), reps=1,
+                  work=lambda args, out: (tensor_bytes(*args, *out), total))
+    chain, tries = max(steps)
+    print(f"    {name}: {total} heap steps over {len(steps)} lanes; longest "
+          f"lane {chain} dependent steps in {tries} attempt(s), "
+          f"{res['ms'] * 1e6 / chain:.1f} ns a step; attempts a lane "
+          f"{min(t for _, t in steps)}-{max(t for _, t in steps)}", flush=True)
+    return res
+
+
+def huffman_pass(torch, rng, bt, nt, ut) -> dict:
+    """Phase 3, the Huffman-length kernel: the 78 lanes (13 blocks x 6
+    tables) of the first -9 batch's first refinement pass, then skewed
+    lanes that halve and retry; each exact against the plain version, and
+    timed beside the hybrid path's host heap on the same lanes."""
+    from bzip2_tpu_torch import native
+    from bzip2_tpu_torch.engine import encode_pre
+    from bzip2_tpu_torch.ops import huffman as hk
+    from bzip2_tpu_torch.ops.groupsearch import group_iter
+    pre = encode_pre(bt, nt, ut)
+    _, freq6 = group_iter(pre[6], pre[5], pre[7])
+    freq = freq6.reshape(-1, 258).contiguous()
+    alpha = (pre[2] + 2).repeat_interleave(6).to(torch.int32).contiguous()
+    del pre, freq6
+    res = huffman_case(torch, "huffman_lengths", hk, freq, alpha)
+
+    def host_heap_ms(f, a):
+        f_np, a_np = f.cpu().numpy(), a.cpu().numpy()
+        lens = native.make_code_lengths_batch(f_np, a_np)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            native.make_code_lengths_batch(f_np, a_np)
+        ms = (time.perf_counter() - t0) * 1e3 / 5
+        got = hk.make_code_lengths_lanes(f, a).cpu().numpy()
+        leaf = np.arange(258)[None, :] < a_np[:, None]
+        if not np.array_equal(np.where(leaf, got, 0), lens):
+            raise AssertionError("huffman_lengths: leaves differ from the "
+                                 "host heap")
+        return ms
+
+    print(f"  host heap (native.make_code_lengths_batch, host clock) "
+          f"{host_heap_ms(freq, alpha):.4f} ms on the same lanes; leaves "
+          "equal", flush=True)
+    L = freq.shape[0]
+    # frequency sums below 2^23, as a block's are: the packed keys fit int32
+    sk_alpha = rng.integers(5, 25, L).astype(np.int32)
+    sk_freq = np.zeros((L, 258), np.int32)
+    for i, a in enumerate(sk_alpha):
+        sk_freq[i, :a] = (2 ** np.minimum(np.arange(a), 19)).astype(np.int32)
+    sf = torch.from_numpy(sk_freq).to(freq.device)
+    sa = torch.from_numpy(sk_alpha).to(freq.device)
+    huffman_case(torch, "huffman skew", hk, sf, sa)
+    print(f"  host heap on the skewed lanes {host_heap_ms(sf, sa):.4f} ms",
+          flush=True)
+    return res
+
+
+def _timed_compress(torch, data, kw) -> tuple:
+    """One bzip2_tpu_torch.compress(data, 9, **kw) with the launch counts
+    and engine telemetry reset just before it; returns (stream, wall s,
+    launches, SHARE, STAGE_WALL)."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import _build, engine
+    engine.reset_telemetry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = bzip2_tpu_torch.compress(data, LEVEL, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, {k: v.launches for k, v in _build.KERNELS.items()},
+            dict(engine.SHARE), dict(engine.STAGE_WALL))
+
+
+def _check_stream(name, out, expect, data) -> None:
+    if out != expect:
+        raise AssertionError(f"{name}: stream differs from bz2.compress")
+    if bz2.decompress(out) != data:
+        raise AssertionError(f"{name}: stream does not round-trip")
+
+
+def fused_phase(torch, data: bytes, expect: bytes, n_blocks: int,
+                card: str) -> int:
+    """Phase 7: the fused mode after one warm-up.  Returns the
+    Huffman-length kernel's launches in the timed run."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import engine
+    kw = {"mode": "fused", "host_workers": 0}
+    _check_stream("fused warm-up", bzip2_tpu_torch.compress(data, LEVEL, **kw),
+                  expect, data)
+    out, wall, launches, share, stages = _timed_compress(torch, data, kw)
+    _check_stream("fused", out, expect, data)
+    batches = -(-n_blocks // engine.Engine(device="cuda")._batch_size_for(
+        LEVEL))
+    if share != {"blocks": n_blocks, "dev_blocks": n_blocks,
+                 "host_blocks": 0, "declines": 0}:
+        raise AssertionError(f"fused: block share {share}")
+    if launches["huffman_lengths"] != 4 * batches:
+        raise AssertionError(f"fused: huffman_lengths launched "
+                             f"{launches['huffman_lengths']} times, not "
+                             f"4 x {batches} batches")
+    missing = [k for k in FUSED if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"fused: kernels not launched: {missing}")
+    mb = len(data) / 1e6
+    print(f"phase 7: fused, {mb:.3f} MB at -{LEVEL}, {n_blocks} of {n_blocks} "
+          f"blocks on the device in {batches} batches, bit-exact vs bz2 and "
+          "round-tripped", flush=True)
+    print(f"  wall {wall:.3f} s = {mb / wall:.3f} MB/s on {card}", flush=True)
+    print("  stage walls: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in stages.items()), flush=True)
+    print("  launches: " + json.dumps({k: launches[k] for k in FUSED}),
+          flush=True)
+    _profile_compress(torch, "fused", data, expect, kw, FUSED)
+    return launches["huffman_lengths"]
+
+
+def _profile_compress(torch, name, data, expect, kw, kernels) -> None:
+    """One more compress(data, 9, **kw) under torch.profiler: the device's
+    busy share, the ops that take its time, each hand kernel's time."""
+    import bzip2_tpu_torch
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    wall, busy, by_name = profiled(
+        torch, lambda: out.append(bzip2_tpu_torch.compress(data, LEVEL, **kw)))
+    _check_stream(f"profiled {name}", out[0], expect, data)
+    total = sum(ms for ms, _ in by_name.values())
+    print(f"  profiled {name} run: wall {wall:.1f} ms; device time "
+          f"{total:.1f} ms, busy {busy:.1f} ms = {100 * busy / wall:.1f}% of "
+          f"the wall; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print_profile(by_name, kernels)
+
+
+def scheduler_phase(torch, data: bytes, expect: bytes, n_blocks: int,
+                    card: str) -> None:
+    """Phase 8: the scheduler's settings beside phase 4's and phase 7's,
+    each warmed up once, then timed in turns for ROUNDS rounds (host-clock
+    walls spread between runs, so only runs in turns compare); then the
+    default setting under torch.profiler."""
+    import bzip2_tpu_torch
+    runs = [("hybrid pipeline=1 host_workers=0", HYBRID),
+            ("fused pipeline=2 host_workers=0",
+             {"mode": "fused", "host_workers": 0}),
+            ("hybrid pipeline=2 host_workers=0",
+             {"pipeline": 2, "host_workers": 0}),
+            ("defaults (hybrid pipeline=2 host_workers=1)", {}),
+            ("use_device=False", {"use_device": False})]
+    mb = len(data) / 1e6
+    print(f"phase 8: scheduler, {mb:.3f} MB at -{LEVEL}, {n_blocks} blocks, "
+          f"{ROUNDS} rounds in turns, on {card}", flush=True)
+    for name, kw in runs:
+        _check_stream(f"{name} warm-up",
+                      bzip2_tpu_torch.compress(data, LEVEL, **kw), expect, data)
+    walls = {name: [] for name, _ in runs}
+    for r in range(ROUNDS):
+        for name, kw in runs:
+            out, wall, launches, share, stages = _timed_compress(torch, data,
+                                                                 kw)
+            _check_stream(name, out, expect, data)
+            if (share["blocks"] != n_blocks
+                    or share["dev_blocks"] + share["host_blocks"] != n_blocks):
+                raise AssertionError(f"{name}: block share {share}")
+            if kw.get("use_device", True):
+                missing = [k for k in ENCODE if launches.get(k, 0) <= 0]
+                if share["dev_blocks"] < 1 or missing:
+                    raise AssertionError(f"{name}: device blocks "
+                                         f"{share['dev_blocks']}, kernels "
+                                         f"not launched {missing}")
+            elif any(launches.values()):
+                raise AssertionError(f"{name}: kernels launched {launches}")
+            walls[name].append(wall)
+            print(f"  round {r + 1} {name}: wall {wall:.3f} s; device "
+                  f"{share['dev_blocks']} + host {share['host_blocks']} "
+                  f"blocks, {share['declines']} declines; stage walls "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()),
+                  flush=True)
+    for name, w in walls.items():
+        med = float(np.median(w))
+        print(f"  {name}: median wall {med:.3f} s = {mb / med:.3f} MB/s "
+              f"(runs {', '.join(f'{x:.3f}' for x in w)})", flush=True)
+    _profile_compress(torch, "default", data, expect, {}, ENCODE)
 
 
 def old_mtf_pass(torch, path, seqm, tl, lx, B) -> None:
@@ -460,20 +741,18 @@ def main() -> int:
         rows, n = args[0].shape
         return tensor_bytes(*args, *out), rows * n * (n.bit_length() - 1)
 
-    def sort_case(name, args, reps=5, library=False):
-        lib = None
-        if library:     # torch.sort of the packed key of sort_pairs_plain
-            key = ((args[0].to(torch.int64) << 32)
-                   | (args[1].to(torch.int64) + (1 << 31)))
-            lib = lambda: torch.sort(key, dim=1)        # noqa: E731
+    def sort_case(name, args, reps=5):
+        # the library call: torch.sort of the packed key of sort_pairs_plain
+        key = ((args[0].to(torch.int64) << 32)
+               | (args[1].to(torch.int64) + (1 << 31)))
         return compare(torch, name, sk.sort_pairs, sk.sort_pairs_plain, args,
-                       reps, library=lib, work=sort_work)
+                       reps, library=lambda: torch.sort(key, dim=1),
+                       work=sort_work)
 
     # the main path's shape: a -9 batch of 13 blocks of up to 900,000
     # rotations padded to 2^20 with INF-keyed lanes
     results["sort_pairs"] = sort_case("sort_pairs INF",
-                                      pairs(13, 1 << 20, inf_from=900_000),
-                                      library=True)
+                                      pairs(13, 1 << 20, inf_from=900_000))
     sort_case("sort_pairs dup", pairs(13, 1 << 20, span=4), reps=2)
     for n in _tail_ladder(1 << 20):   # the tail stages' compaction widths
         sort_case("sort_pairs", pairs(13, n), reps=2)
@@ -515,6 +794,7 @@ def main() -> int:
                                     mk.group_hist_plain,
                                     (mtfv.contiguous(), n_mtf.contiguous()))
     del last, seq, seqm, tl, lx, mtfv, n_mtf
+    results["huffman_lengths"] = huffman_pass(torch, rng, bt, nt, ut)
 
     # the walk kernel at the -9 decoder's shapes: the (tt, cur0, cap) of the
     # first batch's two waves, recorded from one decode of the stream
@@ -557,22 +837,12 @@ def main() -> int:
     # ---- phase 4: the slice through the port's entry point
     # one untimed pass pays the first-use costs at the batch shapes
     # (allocator growth, cuBLAS set-up); the timed pass below is the result
-    if bzip2_tpu_torch.compress(data, LEVEL) != expect:
+    if bzip2_tpu_torch.compress(data, LEVEL, **HYBRID) != expect:
         raise AssertionError("warm-up stream differs from bz2.compress")
-    engine.reset_telemetry()
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    out = bzip2_tpu_torch.compress(data, LEVEL)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: v.launches for k, v in _build.KERNELS.items()}
-    share = dict(engine.SHARE)
-    if out != expect:
-        raise AssertionError("stream differs from bz2.compress(data, 9)")
-    if bz2.decompress(out) != data:
-        raise AssertionError("stream does not round-trip")
-    if share != {"blocks": len(blocks), "dev_blocks": len(blocks)}:
+    out, wall, launches, share, stages = _timed_compress(torch, data, HYBRID)
+    _check_stream("hybrid", out, expect, data)
+    if share != {"blocks": len(blocks), "dev_blocks": len(blocks),
+                 "host_blocks": 0, "declines": 0}:
         raise AssertionError(f"device encoded {share['dev_blocks']} of "
                              f"{share['blocks']} blocks handed to the engine "
                              f"({len(blocks)} expected)")
@@ -585,13 +855,18 @@ def main() -> int:
     print(f"  wall {wall:.3f} s = {mb / wall:.3f} MB/s  (ratio "
           f"{len(out) / len(data):.4f}) on {card}", flush=True)
     print("  stage walls: " + ", ".join(
-        f"{k} {v:.3f} s" for k, v in engine.STAGE_WALL.items()), flush=True)
+        f"{k} {v:.3f} s" for k, v in stages.items()), flush=True)
     print("  launches: " + json.dumps(launches), flush=True)
     profile_slice(torch, data, expect)
 
     # ---- phase 6: the decode path
     launches.update({k: v for k, v in decode_phase(
         torch, data, expect, len(blocks), card).items() if k in DECODE})
+
+    # ---- phases 7 and 8: the fused mode and the scheduler
+    launches["huffman_lengths"] = fused_phase(torch, data, expect,
+                                              len(blocks), card)
+    scheduler_phase(torch, data, expect, len(blocks), card)
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],

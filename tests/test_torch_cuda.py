@@ -15,6 +15,7 @@ import torch
 from bzip2_tpu_torch import _build
 from bzip2_tpu_torch import decoder as dmod
 from bzip2_tpu_torch.ops import decode as TD
+from bzip2_tpu_torch.ops import huffman as hk
 from bzip2_tpu_torch.ops import ibwt_kernel as ik
 from bzip2_tpu_torch.ops import mtf_kernel as mk
 from bzip2_tpu_torch.ops import sort_kernel as sk
@@ -83,7 +84,8 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
 
 def test_kernels_registered_with_counters():
     assert set(_build.KERNELS) == {"sort_pairs", "mtf_tile_last", "mtf_rank",
-                                   "group_hist", "ibwt_walk"}
+                                   "group_hist", "ibwt_walk",
+                                   "huffman_lengths"}
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())
 
@@ -274,7 +276,7 @@ def test_engine_on_card_golden(cuda_device):
     from bzip2_tpu_torch.engine import Engine
     if not native.available():
         pytest.skip("needs the native heap builder")
-    eng = Engine(batch_size=2, device=cuda_device)
+    eng = Engine(batch_size=2, host_workers=0, device=cuda_device)
     api.register_block_encoder("torch-cuda", eng.encode_payloads)
     _build.reset_launches()
     for i, level in ((1, 1), (2, 2), (3, 3)):
@@ -288,6 +290,96 @@ def test_engine_on_card_golden(cuda_device):
         stdlib_bz2.compress(data, 1)
     assert all(_build.KERNELS[k].launches > 0 for k in
                ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist"))
+
+
+# ------------------------------------- Huffman lengths, fused (card) --
+
+def _level9(n_bytes):
+    import chip_smoke
+    data = chip_smoke.corpus(n_bytes, chip_smoke.SEED)
+    return data, stdlib_bz2.compress(data, 9)
+
+
+def _assert_lengths_exact(freq, alpha):
+    before = hk.KERNEL.launches
+    got = hk.make_code_lengths_lanes(freq, alpha)
+    assert hk.KERNEL.launches == before + 1
+    exp = hk.make_code_lengths_lanes_plain(freq, alpha)
+    assert got.dtype == exp.dtype and torch.equal(got, exp)
+    return got
+
+
+@pytest.mark.cuda
+def test_huffman_lengths_kernel_real_level9_lanes(cuda_device):
+    """The 78 lanes of the first refinement pass of a 13-block -9 batch."""
+    from bzip2_tpu_torch import engine
+    from bzip2_tpu_torch.ops.groupsearch import group_iter
+    data, _ = _level9(13 * 900_000)
+    blocks = engine.split_blocks(data, 9)[:13]
+    arr, ns, uses, _ = engine.batch_arrays(blocks, 13,
+                                           engine._block_pad_size(9))
+    pre = engine.encode_pre(*engine.stage_from_numpy((arr, ns, uses),
+                                                     cuda_device))
+    _, freq6 = group_iter(pre[6], pre[5], pre[7])
+    alpha6 = (pre[2] + 2).repeat_interleave(6).to(torch.int32)
+    got = _assert_lengths_exact(freq6.reshape(78, 258).contiguous(), alpha6)
+    from bzip2_tpu_torch import native
+    nat = native.make_code_lengths_batch(freq6.reshape(78, 258).cpu().numpy(),
+                                         alpha6.cpu().numpy())
+    leaf = np.arange(258)[None, :] < alpha6.cpu().numpy()[:, None]
+    assert np.array_equal(np.where(leaf, got.cpu().numpy(), 0), nat)
+
+
+@pytest.mark.cuda
+def test_huffman_lengths_kernel_retry_and_edge_lanes(cuda_device):
+    """Skewed lanes that halve and retry, alpha 2 and 258, all-zero
+    frequencies, a dominant symbol."""
+    rng = np.random.default_rng(12)
+    L = 16
+    freq = np.zeros((L, 258), np.int32)
+    alpha = rng.integers(5, 25, L).astype(np.int32)   # sums below 2^23
+    for i in range(12):
+        a = int(alpha[i])
+        freq[i, :a] = (2 ** np.minimum(np.arange(a), 19)).astype(np.int32)
+    alpha[12:] = [2, 258, 258, 2]
+    freq[13] = rng.integers(0, 50_000, 258)
+    freq[14, 0] = 900_000
+    freq[15, :2] = [7, 0]
+    got = _assert_lengths_exact(torch.from_numpy(freq).to(cuda_device),
+                                torch.from_numpy(alpha).to(cuda_device))
+    assert got[:12].max().item() == 17
+
+
+@pytest.mark.cuda
+def test_fused_engine_on_card(cuda_device):
+    """Engine(mode="fused") on 2 MB at -9: bit-exact, every block on the
+    card, the Huffman kernel 4 times a batch."""
+    from bzip2_tpu_torch import engine
+    data, expect = _level9(2 << 20)
+    eng = engine.Engine(mode="fused", host_workers=0, device=cuda_device)
+    engine.reset_telemetry()
+    _build.reset_launches()
+    assert eng.compress(data, 9) == expect
+    n = len(engine.split_blocks(data, 9))
+    batches = -(-n // eng._batch_size_for(9))
+    assert engine.SHARE["dev_blocks"] == n
+    assert hk.KERNEL.launches == 4 * batches
+    assert all(_build.KERNELS[k].launches > 0 for k in
+               ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist"))
+
+
+@pytest.mark.cuda
+def test_default_engine_on_card(cuda_device):
+    """The default scheduler (two device workers, one host worker) on a
+    4-block -9 input: bit-exact, every block encoded once."""
+    from bzip2_tpu_torch import engine
+    data, expect = _level9(4 * 880_000)
+    eng = engine.Engine(batch_size=2, device=cuda_device)
+    engine.reset_telemetry()
+    assert eng.compress(data, 9) == expect
+    share = engine.SHARE
+    assert share["blocks"] == 4
+    assert share["dev_blocks"] + share["host_blocks"] == 4
 
 
 # ------------------------------------------------- decoder (card) --

@@ -29,8 +29,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def compress():
-    """api.compress through a port Engine on the CPU (2-lane batches)."""
-    eng = teng.Engine(batch_size=2, device="cpu")
+    """api.compress through a port Engine on the CPU (2-lane batches, two
+    device workers, every block on the device)."""
+    eng = teng.Engine(batch_size=2, host_workers=0, device="cpu")
     api.register_block_encoder("torch-cpu", eng.encode_payloads)
     return lambda data, level: api.compress(data, level, backend="torch-cpu")
 
@@ -128,12 +129,24 @@ def test_engine_tiny_and_periodic(compress):
         assert compress(data, 1) == stdlib_bz2.compress(data, 1)
 
 
-def test_engine_padded_tail_batch(compress, rng):
-    # 3 blocks at batch size 2: the second batch carries a dummy lane
+def test_engine_padded_tail_batch(rng, monkeypatch):
+    # 3 blocks at batch size 2: the tail batch runs with its one lane, no
+    # dummy lane
+    lanes = []
+    real = teng.Engine.encode_batch
+
+    def spy(self, level, arr, ns, uses, crcs):
+        lanes.append((arr.shape[0], int(ns.min())))
+        return real(self, level, arr, ns, uses, crcs)
+
+    monkeypatch.setattr(teng.Engine, "encode_batch", spy)
+    eng = teng.Engine(batch_size=2, pipeline=1, host_workers=0, device="cpu")
     data = rng.integers(0, 256, 250_000, dtype=np.uint8).tobytes()
     teng.reset_telemetry()
-    assert compress(data, 1) == stdlib_bz2.compress(data, 1)
+    assert eng.compress(data, 1) == stdlib_bz2.compress(data, 1)
     assert teng.SHARE["dev_blocks"] == 3
+    assert [n for n, _ in lanes] == [2, 1]
+    assert all(m > 1 for _, m in lanes)       # no 1-byte dummy block
 
 
 def test_enable_gpu_backend_registers_default():
@@ -153,15 +166,22 @@ def test_package_compress_entry_point(rng):
     prev = api.get_default_backend()
     data = rng.integers(0, 200, 150_000, dtype=np.uint8).tobytes()
     teng.reset_telemetry()
-    out = bzip2_tpu_torch.compress(data, 1, batch_size=2, device="cpu")
+    out = bzip2_tpu_torch.compress(data, 1, batch_size=2, host_workers=0,
+                                   device="cpu")
     assert out == stdlib_bz2.compress(data, 1)
-    assert teng.SHARE == {"blocks": 2, "dev_blocks": 2}
+    assert teng.SHARE == {"blocks": 2, "dev_blocks": 2, "host_blocks": 0,
+                          "declines": 0}
     assert len(teng.split_blocks(data, 1)) == 2
     assert api.get_default_backend() == prev
 
 
 def test_batch_arrays_pads_dummy_lanes():
     blocks = teng.split_blocks(b"abcabd" * 10, 1)
+    # the engine asks for exactly its blocks' lanes: no dummy lane
+    arr, ns, uses, crcs = teng.batch_arrays(blocks, len(blocks), 64)
+    assert arr.shape == (1, 64) and ns.tolist() == [blocks[0].data.size]
+    assert uses[0].tolist() == blocks[0].in_use.tolist()
+    # a wider batch pads with 1-byte blocks of 0x00
     arr, ns, uses, crcs = teng.batch_arrays(blocks, 3, 64)
     assert arr.shape == (3, 64) and arr.dtype == np.uint8
     assert ns.tolist() == [blocks[0].data.size, 1, 1]
@@ -181,6 +201,8 @@ def test_engine_requires_native(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
     with pytest.raises(RuntimeError, match="native"):
         teng.Engine(device="cpu")
+    with pytest.raises(RuntimeError, match="native"):
+        teng.Engine(mode="fused", device="cpu")
 
 
 def test_port_imports_no_jax():

@@ -24,17 +24,21 @@ from bzip2_tpu import api as japi
 from bzip2_tpu import bitstream as jbits
 from bzip2_tpu import constants as jconst
 from bzip2_tpu import crc as jcrc
+from bzip2_tpu import hostmem as jhostmem
 from bzip2_tpu import native as jnative
 from bzip2_tpu import periodic as jper
 from bzip2_tpu import rle1 as jrle1
+from bzip2_tpu import tracing as jtracing
 from bzip2_tpu.parallel import decode as jpdec
 from bzip2_tpu_torch import api as tapi
 from bzip2_tpu_torch import bitstream as tbits
 from bzip2_tpu_torch import constants as tconst
 from bzip2_tpu_torch import crc as tcrc
+from bzip2_tpu_torch import hostmem as thostmem
 from bzip2_tpu_torch import native as tnative
 from bzip2_tpu_torch import periodic as tper
 from bzip2_tpu_torch import rle1 as trle1
+from bzip2_tpu_torch import tracing as ttracing
 from bzip2_tpu_torch.parallel import decode as tpdec
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -95,7 +99,9 @@ print(json.dumps({"mods": mods, "loaded": sorted(
     assert out["loaded"] == []
     assert {"bzip2_tpu_torch.api", "bzip2_tpu_torch.native",
             "bzip2_tpu_torch.parallel.decode", "bzip2_tpu_torch.decoder",
-            "bzip2_tpu_torch.engine"} <= set(out["mods"])
+            "bzip2_tpu_torch.engine", "bzip2_tpu_torch.tracing",
+            "bzip2_tpu_torch.hostmem",
+            "bzip2_tpu_torch.ops.huffman"} <= set(out["mods"])
 
 
 def test_native_builds_from_the_port_source():
@@ -306,3 +312,110 @@ def test_api_compress_without_backend_raises():
             bzip2_tpu_torch.compress(b"x", 0, device="cpu")
     finally:
         tapi.set_default_backend(prev)
+
+
+# ------------------------------------------------- tracing and hostmem --
+
+@pytest.mark.parametrize("mod", [jtracing, ttracing], ids=["ref", "port"])
+def test_tracing_vlog_gating(mod, capsys):
+    prev = mod.get_verbosity()
+    try:
+        mod.set_verbosity(9)
+        assert mod.get_verbosity() == 4
+        mod.set_verbosity(2)
+        mod.vlog(2, "block %d: %s", 7, "shown")
+        mod.vlog(3, "hidden")
+        mod.set_verbosity(-1)
+        assert mod.get_verbosity() == 0
+        mod.vlog(1, "hidden too")
+    finally:
+        mod.set_verbosity(prev)
+    assert capsys.readouterr().err == "block 7: shown\n"
+
+
+def _metrics_run(mod):
+    mod.enable_metrics(True)
+    try:
+        mod.record("block", index=3, out_bits=99)
+        with mod.span("batch[0:2]"):
+            pass
+        out = mod.collect()
+        assert mod.collect() == []
+    finally:
+        mod.enable_metrics(False)
+    mod.record("block", index=4)            # disabled: not recorded
+    assert mod.collect() == []
+    return [{k: v for k, v in r.items() if k not in ("t", "seconds")}
+            for r in out], [r.get("seconds", 0.0) >= 0.0 for r in out]
+
+
+def test_tracing_records_match_reference():
+    got = _metrics_run(ttracing)
+    assert got == _metrics_run(jtracing)
+    assert got[0] == [{"kind": "block", "index": 3, "out_bits": 99},
+                      {"kind": "span", "name": "batch[0:2]"}]
+
+
+def test_span_logs_at_its_level(capsys):
+    prev = ttracing.get_verbosity()
+    try:
+        ttracing.set_verbosity(3)
+        with ttracing.span("stage"):
+            pass
+    finally:
+        ttracing.set_verbosity(prev)
+    assert capsys.readouterr().err.startswith("    [stage] ")
+
+
+def test_profile_trace_writes_a_trace_file(tmp_path):
+    import torch
+    with ttracing.profile_trace(str(tmp_path / "tr")):
+        (torch.arange(1000) * 3).sum()
+    files = list((tmp_path / "tr").glob("trace_*.json"))
+    assert len(files) == 1
+    trace = json.loads(files[0].read_text())
+    assert trace["traceEvents"]
+
+
+def test_package_exports_tracing():
+    assert bzip2_tpu_torch.set_verbosity is ttracing.set_verbosity
+    assert bzip2_tpu_torch.profile_trace is ttracing.profile_trace
+    assert bzip2_tpu_torch.enable_metrics is ttracing.enable_metrics
+    assert bzip2_tpu_torch.collect_metrics is ttracing.collect
+
+
+def test_hostmem_matches_reference():
+    assert thostmem.set_malloc_retention() is jhostmem.set_malloc_retention()
+    assert thostmem.set_malloc_retention() is True
+    for name in ("_M_MMAP_THRESHOLD", "_M_TRIM_THRESHOLD", "_MADV_HUGEPAGE",
+                 "_HUGE"):
+        assert getattr(thostmem, name) == getattr(jhostmem, name)
+    thostmem.warm_heap(4 << 20)
+    buf = np.zeros(3 << 20, np.uint8)
+    thostmem.advise_hugepages(buf.ctypes.data, buf.size)
+    assert not buf.any()
+
+
+def test_hostmem_reads_warm_heap_env():
+    code = ("import bzip2_tpu_torch.hostmem as h; "
+            "print(h._done_retention)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), BZ2TPU_WARM_HEAP="1048576")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "True"
+
+
+@pytest.mark.parametrize("name,level", [("text", 1), ("runs", 1),
+                                        ("runs4", 1), ("random", 9),
+                                        ("one", 1)])
+def test_native_encode_block_matches(name, level):
+    for blk in trle1.encode_blocks(INPUTS[name], level)[:2]:
+        got = tnative.encode_block(blk.data, blk.in_use, blk.crc)
+        assert got == jnative.encode_block(blk.data, blk.in_use, blk.crc)
+        assert got[1] > 0 and len(got[0]) == (got[1] + 7) // 8
+
+
+def test_native_encode_block_rejects_empty_block():
+    with pytest.raises(RuntimeError, match="native encode failed"):
+        tnative.encode_block(np.zeros(0, np.uint8), np.zeros(256, bool), 0)
