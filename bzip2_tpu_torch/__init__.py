@@ -24,37 +24,36 @@ from .tracing import set_verbosity, profile_trace, enable_metrics
 from .tracing import collect as collect_metrics
 
 
-def _register_gpu(engine_kwargs: dict) -> None:
-    from . import api
-    from .engine import Engine
-
-    api.register_block_encoder("gpu", Engine(**engine_kwargs).encode_payloads)
-
-
 def enable_gpu_backend(**engine_kwargs) -> None:
     """Register the port's engine as block-encoder backend "gpu" for
     ``bzip2_tpu_torch.api.compress`` and make it the default.
     ``engine_kwargs`` go to :class:`bzip2_tpu_torch.engine.Engine`:
     ``batch_size``, ``mode`` (None = "hybrid", or "fused"), ``pipeline``
     (default 2), ``host_workers`` (None = 1), ``use_device`` (default True)
-    and ``device`` (default ``"cuda"``)."""
+    and ``device`` (default ``"cuda"``).  One engine serves each distinct
+    set of arguments for the life of the process
+    (``engine.engine_for``)."""
     from . import api
+    from .engine import engine_for
 
-    _register_gpu(engine_kwargs)
+    api.register_block_encoder("gpu", engine_for(**engine_kwargs)
+                               .encode_payloads)
     api.set_default_backend("gpu")
 
 
 def compress(data, level: int = 9, **engine_kwargs) -> bytes:
     """Compress ``data`` into one standard .bz2 stream, every block encoded
     by the port's engine.  The stream framing, RLE1 split and periodic
-    origPtr corrector are ``bzip2_tpu_torch.api``'s; this (re)registers
-    backend "gpu" with ``engine_kwargs`` (as :func:`enable_gpu_backend`
-    takes them; ``host_workers=0`` keeps every block on the device) and
-    does not change the default backend."""
+    origPtr corrector are ``bzip2_tpu_torch.api``'s.  ``engine_kwargs`` are
+    :func:`enable_gpu_backend`'s (``host_workers=0`` keeps every block on
+    the device); calls with the same arguments share one engine, whose
+    scheduler rates carry from one call to the next.  The registry and the
+    default backend are left as they are."""
     from . import api
+    from .engine import engine_for
 
-    _register_gpu(engine_kwargs)
-    return api.compress(data, level, backend="gpu")
+    return api.compress_with(engine_for(**engine_kwargs).encode_payloads,
+                             data, level)
 
 
 def decompress(data, multi_stream: bool = False, **decoder_kwargs) -> bytes:

@@ -2,11 +2,13 @@
 block encoder, and the error classes of its decoder.
 
 Counterpart of the parts of ``bzip2_tpu/api.py`` that the port uses: the
-error classes, the block-encoder registry with its exactly-periodic
-origPtr corrector, the default backend, and the framing of ``compress``
-(header, bit-spliced block payloads, end-of-stream magic and combined CRC).
-No backend is registered until ``bzip2_tpu_torch.enable_gpu_backend`` or
-``bzip2_tpu_torch.compress`` registers the port's engine as ``"gpu"``.
+error classes, the block-encoder registry (each entry wrapped with the
+exactly-periodic origPtr corrector when it is registered), the default
+backend, and the framing of ``compress`` (header, bit-spliced block
+payloads, end-of-stream magic and combined CRC).  No backend is registered
+until ``bzip2_tpu_torch.enable_gpu_backend`` or
+``bzip2_tpu_torch.engine.register_backend`` registers the port's engine as
+``"gpu"``.
 """
 from __future__ import annotations
 
@@ -44,10 +46,21 @@ def register_block_encoder(name: str, fn) -> None:
     """Register a batched block encoder: fn(list[RLE1Block], level) ->
     list[(uint8 array, nbits)] of per-block bit payloads.
 
-    ``compress`` wraps the encoder with the exactly-periodic origPtr
-    corrector (``periodic.patch_payloads``), so its output equals stock
-    bzip2's on periodic blocks too."""
-    _BLOCK_ENCODERS[name] = fn
+    The registry holds ``fn`` wrapped with the exactly-periodic origPtr
+    corrector (``periodic.patch_payloads``), as the reference's does, so a
+    caller of a registry entry gets stock bzip2's payloads on periodic
+    blocks too, and ``compress`` frames them without patching again."""
+    _BLOCK_ENCODERS[name] = _corrected(fn)
+
+
+def _corrected(fn):
+    """The block encoder ``fn`` with its payloads passed through the
+    periodic corrector."""
+
+    def wrapped(blocks, level):
+        return periodic.patch_payloads(fn(blocks, level), blocks, level)
+
+    return wrapped
 
 
 def set_default_backend(name: str | None) -> None:
@@ -68,19 +81,29 @@ def compress(data, level: int = 9, backend: str | None = None) -> bytes:
     if encoder is None:
         raise ValueError(f"unknown backend {backend!r} (none registered: "
                          "call bzip2_tpu_torch.enable_gpu_backend())")
-    return compress_with(encoder, data, level)
+    return _compress_blocks(encoder, data, level)
 
 
 def compress_with(encoder, data, level: int = 9) -> bytes:
-    """One .bz2 stream of ``data``: its RLE1 blocks through the block
-    encoder ``encoder(blocks, level)`` and the periodic corrector, between
-    the stream header and the end-of-stream magic and combined CRC."""
+    """One .bz2 stream of ``data`` through a raw block encoder
+    ``encoder(blocks, level)`` (one not taken from the registry): its
+    payloads go through the periodic corrector once, then into the stream
+    framing."""
     if not 1 <= level <= 9:
         raise ValueError("level must be 1..9")
-    blocks = _rle1.encode_blocks(data, level)
-    payloads = periodic.patch_payloads(encoder(blocks, level), blocks,
-                                       level) if blocks else []
+    return _compress_blocks(_corrected(encoder), data, level)
 
+
+def _compress_blocks(encoder, data, level: int) -> bytes:
+    """The RLE1 blocks of ``data`` through ``encoder``, whose payloads are
+    final, then framed."""
+    blocks = _rle1.encode_blocks(data, level)
+    return frame(blocks, encoder(blocks, level) if blocks else [], level)
+
+
+def frame(blocks: list, payloads: list, level: int) -> bytes:
+    """The stream of ``blocks``' final payloads: the header, the payloads
+    bit-spliced, then the end-of-stream magic and the combined CRC."""
     w = BitWriter()
     w.write(C.HDR_B, 8)
     w.write(C.HDR_Z, 8)

@@ -549,3 +549,36 @@ class Engine:
     def compress(self, data, level: int = 9) -> bytes:
         """One .bz2 stream of ``data``, every block through this engine."""
         return compress_with(self.encode_payloads, data, level)
+
+
+#: the engines of the process, one per distinct set of Engine arguments
+#: (the sorted keyword items; ``()`` is the default engine), so that each
+#: keeps its scheduler rates and allocator policy from one stream to the next
+_ENGINES: dict = {}
+_ENGINES_LOCK = threading.Lock()
+
+
+def engine_for(**engine_kwargs) -> Engine:
+    """The process's one Engine built with ``engine_kwargs``, made at first
+    use; no arguments gives :func:`default_engine`."""
+    key = tuple(sorted(engine_kwargs.items()))
+    with _ENGINES_LOCK:
+        eng = _ENGINES.get(key)
+        if eng is None:
+            eng = _ENGINES[key] = Engine(**engine_kwargs)
+        return eng
+
+
+def default_engine() -> Engine:
+    """The process's Engine with the default arguments."""
+    return engine_for()
+
+
+def register_backend() -> None:
+    """Register the default engine as block-encoder backend "gpu" for
+    ``api.compress(..., backend="gpu")``."""
+    from . import api
+
+    api.register_block_encoder(
+        "gpu", lambda blocks, level: default_engine().encode_payloads(
+            blocks, level))

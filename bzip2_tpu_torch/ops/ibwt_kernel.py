@@ -6,9 +6,9 @@ Counterpart of the ``wave`` loop of ``bzip2_tpu/ops/decode.py:ibwt``, a
 chases the packed successor array ``tt = succ << 9 | splitter << 8 | byte``
 from its start position until it reaches a splitter or ``cap`` steps pass.
 The plain version is that loop in torch ops, one host check per step; the
-kernel runs every lane to its end in one launch.  A wrapper runs its plain
-version only for a tensor on the CPU; for a CUDA tensor it launches its
-kernel.
+kernel runs every lane to its end in one launch and writes the whole
+buffer, zero tails included.  A wrapper runs its plain version only for a
+tensor on the CPU; for a CUDA tensor it launches its kernel.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def ibwt_walk(tt: torch.Tensor, cur0: torch.Tensor, cap: int):
     cur = torch.empty_like(cur0)
     cnt = torch.empty_like(cur0)
     hitp = torch.empty_like(cur0)
-    buf = torch.zeros((B, W, cap), dtype=torch.uint8, device=tt.device)
+    buf = torch.empty((B, W, cap), dtype=torch.uint8, device=tt.device)
     WALK(_build.ptr(tt), _build.ptr(cur0), _build.ptr(cur), _build.ptr(cnt),
          _build.ptr(hitp), _build.ptr(buf), B, N, W, cap,
          _build.stream_of(tt))

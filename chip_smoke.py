@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (bzip2_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--old-mtf PATH.cu]
+    python3 chip_smoke.py [--old-mtf PATH.cu] [--old-huffman PATH.cu]
+                          [--old-walk PATH.cu ...]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. print the toolchain and the card; fail without CUDA;
   2. build the CUDA kernels from bzip2_tpu_torch/csrc/ and, at the same
-     time, the port's C++ host runtime from bzip2_tpu_torch/native/;
+     time, the port's C++ host runtime from bzip2_tpu_torch/native/, the
+     dependent-load chase probe (CHASE_PROBE, into build/probe/) and any
+     --old-* source;
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes (exact equality) and time both with CUDA events, beside its
      bound (the larger of its bytes over the card's memory rate and its
@@ -20,11 +23,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      timed beside the host heap of the hybrid path
      (native.make_code_lengths_batch); the heap steps its inputs need and
      its longest lane's serial chain of them are printed with it, since
-     that chain, not its bytes, limits it.  The sort is timed beside
-     torch.sort of its packed key at every shape.  With --old-mtf, an
-     earlier mtf_ranks.cu of the first design is built into build/probe/
-     and its two kernels are timed on the same batch, in turns with the
-     current ones;
+     that chain, not its bytes, limits it.  The chase probe times one
+     thread's dependent loads over a 3.6 MB table (a -9 row of the walk's
+     tt) from L2 and from a 16-CTA cluster's distributed shared memory, in
+     ns a step, and prints how many such clusters the card holds at once
+     (cudaOccupancyMaxActiveClusters).  The sort is timed beside
+     torch.sort of its packed key at every shape, mtf_tile_last beside one
+     scatter_reduce_ "amax" and group_hist beside one torch.bincount.  With
+     --old-mtf, --old-huffman or --old-walk (the last two may be given
+     more than once), an earlier source of that kernel, built into
+     build/probe/, is held against the current kernel's output (exact) on
+     the same inputs and timed in turns with it: old, current, current,
+     old;
   4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress
      in hybrid mode with one device worker and no host worker: the stream
      must equal bz2.compress(data, 9) and round-trip through
@@ -40,6 +50,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bound by the port's native runtime; then a -1 stream of a 2 MB
      prefix and a two-member stream with trailing garbage, and one more -9
      decode under torch.profiler;
+  6b. the port's native batch decoder, native.decode_some, on the whole -9
+     stream in a child process (a crash fails the run with its signal):
+     every block, the bytes exact;
   7. the fused mode (mode="fused", host_workers=0) on the same data, after
      one warm-up: bit-exact, round-trips, every block on the device, the
      Huffman-length kernel launched 4 times a batch, every encode kernel
@@ -97,7 +110,7 @@ SYMBOLS = {
     "mtf_tile_last": ("tile_last_kernel",),
     "mtf_rank": ("rank_kernel",),
     "group_hist": ("group_hist_kernel",),
-    "ibwt_walk": ("ibwt_walk_kernel",),
+    "ibwt_walk": ("ibwt_walk_kernel", "ibwt_tail_kernel"),
     "huffman_lengths": ("huffman_lengths_kernel",),
 }
 ENCODE = ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist")
@@ -107,6 +120,135 @@ DECODE = ("ibwt_walk",)
 #: the device (the engine's defaults add a second worker and a host one)
 HYBRID = {"pipeline": 1, "host_workers": 0}
 ROUNDS = 3          # phase 8's rounds of runs in turns
+PROBE_DIR = os.path.join(HERE, "build", "probe")
+CHASE_STEPS = (20_000, 220_000)   # the chase probe's two run lengths
+
+#: the chase probe: one thread follows a single-cycle permutation for
+#: ``steps`` dependent loads, read from global memory (L2), as ibwt_walk.cu
+#: reads tt, or from the distributed shared memory of a cluster that staged
+#: it (a row sliced over up to 16 CTAs), the design the walk was measured
+#: against
+CHASE_PROBE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <algorithm>
+namespace cg = cooperative_groups;
+constexpr int kSliceMax = 232448 / 4;
+constexpr int kThreads = 256;
+
+__global__ void chase_global(const int* __restrict__ next, int steps,
+                             int start, int* out) {
+  int c = start;
+  for (int s = 0; s < steps; ++s) c = __ldg(next + c);
+  *out = c;
+}
+
+__global__ void __launch_bounds__(kThreads)
+chase_cluster(const int* __restrict__ next, int n, int slice,
+              unsigned long long magic, int steps, int start, int* out) {
+  extern __shared__ __align__(16) int st[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lo = rank * slice;
+  const int here = max(0, min(slice, n - lo));
+  for (int i = threadIdx.x; i < here; i += kThreads) st[i] = next[lo + i];
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    const unsigned base = (unsigned)__cvta_generic_to_shared(st);
+    int c = start;
+    for (int s = 0; s < steps; ++s) {
+      const unsigned r = (unsigned)(((unsigned long long)c * magic) >> 40);
+      const unsigned local = base + 4u * (unsigned)(c - (int)r * slice);
+      unsigned remote;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(remote) : "r"(local), "r"(r));
+      asm volatile("ld.shared::cluster.b32 %0, [%1];"
+                   : "=r"(c) : "r"(remote));
+    }
+    *out = c;
+  }
+  cluster.sync();
+}
+
+extern "C" int probe_chase_global(const int* next, int steps, int start,
+                                  int* out, void* stream) {
+  chase_global<<<1, 1, 0, (cudaStream_t)stream>>>(next, steps, start, out);
+  return (int)cudaGetLastError();
+}
+
+// one cluster of cs CTAs holding n entries: the shape of a -9 row
+struct Shape {
+  int cs, slice;
+  unsigned long long magic;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+};
+
+static int shape_for(int n, void* stream, Shape* s) {
+  s->cs = std::min(16, (n + kSliceMax - 1) / kSliceMax);
+  s->slice = std::min(kSliceMax, ((n + s->cs - 1) / s->cs + 3) & ~3);
+  if ((long long)s->cs * s->slice < n) return (int)cudaErrorInvalidValue;
+  s->magic = (1ull << 40) / s->slice + 1;
+  cudaError_t e = cudaFuncSetAttribute(
+      chase_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSliceMax * 4);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        chase_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  s->cfg = cudaLaunchConfig_t{};
+  s->cfg.gridDim = dim3(s->cs);
+  s->cfg.blockDim = dim3(kThreads);
+  s->cfg.dynamicSmemBytes = (size_t)s->slice * 4;
+  s->cfg.stream = (cudaStream_t)stream;
+  s->attr.id = cudaLaunchAttributeClusterDimension;
+  s->attr.val.clusterDim.x = s->cs;
+  s->attr.val.clusterDim.y = 1;
+  s->attr.val.clusterDim.z = 1;
+  s->cfg.attrs = &s->attr;
+  s->cfg.numAttrs = 1;
+  return (int)e;
+}
+
+extern "C" int probe_chase_cluster(const int* next, int n, int steps,
+                                   int start, int* out, void* stream) {
+  Shape s;
+  int rc = shape_for(n, stream, &s);
+  if (rc) return rc;
+  cudaError_t e = cudaLaunchKernelEx(&s.cfg, chase_cluster, next, n, s.slice,
+                                     s.magic, steps, start, out);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out[0] = CTAs a cluster, out[1] = its shared memory bytes a CTA,
+// out[2] = cudaOccupancyMaxActiveClusters for that shape
+extern "C" int probe_cluster_occupancy(int n, int* out) {
+  Shape s;
+  int rc = shape_for(n, nullptr, &s);
+  if (rc) return rc;
+  int active = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&active, chase_cluster,
+                                                 &s.cfg);
+  out[0] = s.cs;
+  out[1] = s.slice * 4;
+  out[2] = active;
+  return (int)e;
+}
+"""
+
+#: phase 6b's child: native.decode_some over a whole stream read from stdin
+NATIVE_DECODE = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+from bzip2_tpu_torch import native
+stream = sys.stdin.buffer.read()
+out, nxt, level, comb, status, rc = native.decode_some(stream, 0, 0, 0)
+print(json.dumps({"rc": rc, "status": status, "next_bit": nxt,
+                  "level": level, "bytes": -1 if out is None else len(out),
+                  "sha256": None if out is None
+                  else hashlib.sha256(out).hexdigest()}))
+"""
 
 
 def _run(cmd: list[str]) -> str:
@@ -428,11 +570,12 @@ def huffman_case(torch, name, hk, freq, alpha) -> dict:
     return res
 
 
-def huffman_pass(torch, rng, bt, nt, ut) -> dict:
+def huffman_pass(torch, rng, bt, nt, ut, old=()) -> dict:
     """Phase 3, the Huffman-length kernel: the 78 lanes (13 blocks x 6
     tables) of the first -9 batch's first refinement pass, then skewed
     lanes that halve and retry; each exact against the plain version, and
-    timed beside the hybrid path's host heap on the same lanes."""
+    timed beside the hybrid path's host heap on the same lanes.  ``old``
+    lists (library, path) of earlier designs to time on both sets."""
     from bzip2_tpu_torch import native
     from bzip2_tpu_torch.engine import encode_pre
     from bzip2_tpu_torch.ops import huffman as hk
@@ -472,6 +615,9 @@ def huffman_pass(torch, rng, bt, nt, ut) -> dict:
     huffman_case(torch, "huffman skew", hk, sf, sa)
     print(f"  host heap on the skewed lanes {host_heap_ms(sf, sa):.4f} ms",
           flush=True)
+    for lib, path in old:
+        old_huffman_pass(torch, lib, path, [("the 78 lanes", freq, alpha),
+                                            ("the skewed lanes", sf, sa)])
     return res
 
 
@@ -602,25 +748,307 @@ def scheduler_phase(torch, data: bytes, expect: bytes, n_blocks: int,
     _profile_compress(torch, "default", data, expect, {}, ENCODE)
 
 
-def old_mtf_pass(torch, path, seqm, tl, lx, B) -> None:
+def tile_last_library(torch, seqm, T: int):
+    """The library call for mtf_tile_last: one scatter_reduce_ "amax" of
+    each position's row index into its (next tile, symbol) slot of a
+    buffer set up once with the seeds and -2^30, pads and the last tile's
+    positions sent to a spare slot.  Checked equal to the kernel once."""
+    from bzip2_tpu_torch.ops import mtf_kernel as mk
+    rows = seqm.shape[0]
+    dev = seqm.device
+    tile = torch.arange(rows, device=dev)[:, None] % T
+    pos = (tile * mk.PTILE + torch.arange(mk.PTILE, device=dev)[None, :])
+    keep = (seqm < 256) & (tile < T - 1)
+    idx = torch.where(keep, (torch.arange(rows, device=dev)[:, None] + 1) * 256
+                      + seqm.to(torch.int64), rows * 256).reshape(-1)
+    val = pos.to(torch.int32).reshape(-1)
+    init = torch.full((rows * 256 + 1,), -(1 << 30), dtype=torch.int32,
+                      device=dev)
+    init[:rows * 256].view(rows // T, T, 256)[:, 0] = -(torch.arange(
+        256, dtype=torch.int32, device=dev) + 1)
+    out = init.clone()
+
+    def call():
+        out.scatter_reduce_(0, idx, val, "amax")
+
+    call()
+    if not torch.equal(out[:-1].view(rows, 256), mk.tile_last(seqm, T)):
+        raise AssertionError("tile_last library call differs from the kernel")
+    return call
+
+
+def group_hist_library(torch, mtfv, n_mtf, g_size: int = 50):
+    """The library call for group_hist: one torch.bincount of the
+    flattened (row, group, symbol) index, positions past n_mtf and symbols
+    outside 0..257 sent to a spare bin.  Checked equal to the kernel once."""
+    from bzip2_tpu_torch.ops import mtf_kernel as mk
+    B, M = mtfv.shape
+    G = -(-M // g_size)
+    m = torch.arange(M, device=mtfv.device)[None, :]
+    ok = (m < n_mtf[:, None]) & (mtfv >= 0) & (mtfv < mk.ALPHA)
+    idx = torch.where(ok, (torch.arange(B, device=mtfv.device)[:, None] * G
+                           + m // g_size) * mk.ALPHA + mtfv.to(torch.int64),
+                      B * G * mk.ALPHA).reshape(-1)
+    n_bins = B * G * mk.ALPHA + 1
+
+    def call():
+        return torch.bincount(idx, minlength=n_bins)
+
+    got = call()[:-1].view(B, G, mk.ALPHA)
+    if not torch.equal(got.to(torch.int32),
+                       mk.group_hist(mtfv.contiguous(), n_mtf.contiguous())):
+        raise AssertionError("group_hist library call differs from the kernel")
+    return call
+
+
+def start_probe_build(path: str, stem: str) -> tuple:
+    """Start nvcc on one probe source into build/probe/, keyed by the
+    source's hash, beside the kernels' build.  Returns (library path, the
+    nvcc process or None when the library is already there)."""
+    import hashlib
+
+    from bzip2_tpu_torch import _build
+    with open(path, "rb") as fh:
+        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
+    so = os.path.join(PROBE_DIR, f"lib{stem}_{tag}.so")
+    if os.path.exists(so):
+        return so, None
+    os.makedirs(PROBE_DIR, exist_ok=True)
+    return so, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", _build.CSRC,
+         "-o", so, path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def probe_lib(build: tuple):
+    """Wait for a probe build and load it."""
+    import ctypes as ct
+    so, proc = build
+    if proc is not None:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"nvcc failed on {so}:\n{err}")
+    return ct.CDLL(so)
+
+
+def chase_probe_source() -> str:
+    """CHASE_PROBE written to build/probe/chase_probe.cu."""
+    path = os.path.join(PROBE_DIR, "chase_probe.cu")
+    os.makedirs(PROBE_DIR, exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(CHASE_PROBE)
+    return path
+
+
+def cuda_ms_each(torch, fn, reps: int, prep) -> float:
+    """Mean device time of fn over reps launches timed one by one, each
+    after an untimed prep(), after one warm-up."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        prep()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+    return total / reps
+
+
+def in_turns(torch, old, new, reps: int, prep=None) -> tuple:
+    """CUDA-event means of old, new, new, old (each call after an untimed
+    prep() when given); returns them and the speed-up of new over old."""
+    ms = (lambda f: cuda_ms(torch, f, reps)) if prep is None else (
+        lambda f: cuda_ms_each(torch, f, reps, prep))
+    t = (ms(old), ms(new), ms(new), ms(old))
+    return t, (t[0] + t[3]) / (t[1] + t[2])
+
+
+def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
+    """Phase 3: ns a dependent load for one thread chasing a random
+    single-cycle permutation of n int32 entries (a -9 row of tt) from L2
+    and from a cluster's distributed shared memory, and of 8 n entries (a
+    batch's tt) from L2: the difference of two runs of CHASE_STEPS steps
+    over the step difference."""
+    import ctypes as ct
+
+    from bzip2_tpu_torch import _build
+
+    def cycle(size):
+        order = rng.permutation(size)
+        nxt = np.empty(size, np.int32)
+        nxt[order] = np.roll(order, -1)
+        return order, torch.from_numpy(nxt).cuda()
+
+    row, batch = cycle(n), cycle(8 * n)
+    out = torch.empty(1, dtype=torch.int32, device=row[1].device)
+    stream = _build.stream_of(out)
+    lib.probe_chase_global.argtypes = [ct.c_void_p, ct.c_int, ct.c_int,
+                                       ct.c_void_p, ct.c_void_p]
+    lib.probe_chase_cluster.argtypes = [ct.c_void_p, ct.c_int, ct.c_int,
+                                        ct.c_int, ct.c_void_p, ct.c_void_p]
+
+    def cluster(table, k, start, o, st):
+        return lib.probe_chase_cluster(table, n, k, start, o, st)
+
+    ns = {}
+    for name, (order, table), fn in [("L2", row, lib.probe_chase_global),
+                                     ("DSMEM", row, cluster),
+                                     ("L2, 8 rows", batch,
+                                      lib.probe_chase_global)]:
+        int(table.sum())            # the table into L2
+
+        def run(k):
+            return fn(table.data_ptr(), k, int(order[0]), out.data_ptr(),
+                      stream)
+
+        ms = []
+        for k in CHASE_STEPS:
+            if run(k):
+                raise AssertionError(f"chase probe {name} did not launch")
+            torch.cuda.synchronize()
+            if int(out.item()) != int(order[k % order.size]):
+                raise AssertionError(f"chase probe {name} ended off the cycle")
+            ms.append(cuda_ms(torch, lambda: run(k), 3))
+        ns[name] = (ms[1] - ms[0]) * 1e6 / (CHASE_STEPS[1] - CHASE_STEPS[0])
+    occ = (ct.c_int * 3)()
+    lib.probe_cluster_occupancy.argtypes = [ct.c_int, ct.c_void_p]
+    if lib.probe_cluster_occupancy(n, occ):
+        raise AssertionError("cluster occupancy query failed")
+    print(f"  chase probe, one thread over a {n * 4} B table: L2 "
+          f"{ns['L2']:.1f} ns a step, cluster shared memory "
+          f"{ns['DSMEM']:.1f} ns a step; over {8 * n * 4} B (a batch's "
+          f"tt) from L2 {ns['L2, 8 rows']:.1f} ns a step; clusters of "
+          f"{occ[0]} CTAs with {occ[1]} B each: "
+          f"cudaOccupancyMaxActiveClusters {occ[2]}", flush=True)
+    return ns
+
+
+def old_huffman_pass(torch, lib, path, cases) -> None:
+    """Phase 3 with --old-huffman: an earlier huffman_lengths.cu (same C
+    entry point) on each (name, freq, alpha) case, held against the current
+    kernel's output, then timed in turns."""
+    import ctypes as ct
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import huffman as hk
+    fn = lib.bz2t_huffman_lengths
+    fn.argtypes = [ct.c_void_p] * 3 + [ct.c_int, ct.c_void_p]
+    for name, freq, alpha in cases:
+        out = torch.empty_like(freq)
+
+        def old():
+            if fn(freq.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                  freq.shape[0], _build.stream_of(freq)):
+                raise AssertionError("old huffman_lengths did not launch")
+
+        old()
+        if not torch.equal(out, hk.make_code_lengths_lanes(freq, alpha)):
+            raise AssertionError(f"{name}: the old huffman_lengths disagrees "
+                                 "with the current one")
+        t, speedup = in_turns(
+            torch, old, lambda: hk.make_code_lengths_lanes(freq, alpha), 5)
+        print(f"  old design {os.path.basename(path)} on {name}: old "
+              f"{t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, old {t[3]:.4f} ms;"
+              f" new {speedup:.2f}x faster, outputs equal", flush=True)
+
+
+def old_walk_pass(torch, lib, path, waves) -> None:
+    """Phase 3 with --old-walk: an earlier ibwt_walk.cu (same C entry point)
+    on the recorded waves, held against the current kernel's outputs, then
+    both timed in turns as their wrappers run them: a design that leaves
+    the buffer's zero tail to its caller (found by handing it a buffer of
+    0xFF) is timed with the zero fill its wrapper did."""
+    import ctypes as ct
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import ibwt_kernel as ik
+    fn = lib.bz2t_ibwt_walk
+    fn.argtypes = [ct.c_void_p] * 6 + [ct.c_int] * 4 + [ct.c_void_p]
+    for i, (tt, cur0, cap) in enumerate(waves):
+        B, N = tt.shape
+        W = cur0.shape[1]
+        outs = [torch.empty_like(cur0) for _ in range(3)]
+        buf = torch.full((B, W, cap), 0xFF, dtype=torch.uint8,
+                         device=tt.device)
+
+        def kernel():
+            if fn(tt.data_ptr(), cur0.data_ptr(),
+                  *(o.data_ptr() for o in outs), buf.data_ptr(), B, N, W, cap,
+                  _build.stream_of(tt)):
+                raise AssertionError("old ibwt_walk did not launch")
+
+        kernel()
+        got = ik.ibwt_walk(tt, cur0, cap)
+        needs_fill = not torch.equal(buf, got[3])
+        if needs_fill:
+            buf.zero_()
+            kernel()
+
+            def old():
+                buf.zero_()
+                kernel()
+        else:
+            old = kernel
+        if not all(torch.equal(a, b) for a, b in zip((*outs, buf), got)):
+            raise AssertionError(f"wave {i + 1}: the old ibwt_walk disagrees "
+                                 "with the current one")
+        fill = " (with its zero fill)" if needs_fill else ""
+        # back to back, each call finds tt as the last one's writes left
+        # it; then tt read into L2 before each call, as the decoder's
+        # batch finds it, freshly built
+        for how, prep in (("back to back", None),
+                          ("tt in L2", lambda: tt.sum())):
+            t, speedup = in_turns(
+                torch, old, lambda: ik.ibwt_walk(tt, cur0, cap), 3, prep)
+            print(f"  old design {os.path.basename(path)} on wave {i + 1}"
+                  f"{fill}, {how}: old {t[0]:.4f}, new {t[1]:.4f}, new "
+                  f"{t[2]:.4f}, old {t[3]:.4f} ms; new {speedup:.2f}x "
+                  "faster, outputs equal", flush=True)
+
+
+def native_decode_gate(data: bytes, expect: bytes, n_blocks: int) -> None:
+    """Phase 6b: native.decode_some over the whole -9 stream, in a child
+    process, with the runtime phase 2 built: it must return every block's
+    bytes exactly, and a crash fails the run with its signal."""
+    import hashlib
+    import signal
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", NATIVE_DECODE, HERE],
+                       input=expect, capture_output=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode < 0:
+        raise AssertionError(
+            "native.decode_some died with "
+            f"{signal.Signals(-r.returncode).name} on the -9 stream:\n"
+            + r.stderr.decode(errors="replace")[-2000:])
+    if r.returncode:
+        raise AssertionError("native.decode_some child failed:\n"
+                             + r.stderr.decode(errors="replace")[-2000:])
+    res = json.loads(r.stdout.decode().strip().splitlines()[-1])
+    want = {"rc": 0, "status": 1, "level": LEVEL, "bytes": len(data),
+            "sha256": hashlib.sha256(data).hexdigest()}
+    if ({k: res[k] for k in want} != want
+            or (res["next_bit"] + 7) // 8 != len(expect)):
+        raise AssertionError(f"native.decode_some on the -9 stream: {res}")
+    print(f"phase 6b: native.decode_some decoded the whole -{LEVEL} stream "
+          f"({n_blocks} blocks, {len(expect)} bytes) in a child process: "
+          f"{len(data)} bytes exact, consumed to the end; {wall:.3f} s with "
+          "the child's start (host clock)", flush=True)
+
+
+def old_mtf_pass(torch, lib, path, seqm, tl, lx, B) -> None:
     """Phase 3 with --old-mtf: the first design's mtf_ranks.cu (its
     bz2t_mtf_tile_last writes (rows, 256) int16 in-tile indices, -1 where a
     symbol is absent; its bz2t_mtf_rank takes the current arguments) on the
     current kernels' batch.  Both old kernels are held against the current
     outputs, then timed in turns: old, current, current, old."""
     import ctypes as ct
-    import hashlib
 
     from bzip2_tpu_torch import _build
     from bzip2_tpu_torch.ops import mtf_kernel as mk
-    with open(path, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    so = os.path.join(HERE, "build", "probe", f"libmtf_old_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                        _build.CSRC, "-o", so, path], check=True)
-    lib = ct.CDLL(so)
     lib.bz2t_mtf_tile_last.argtypes = [ct.c_void_p] * 2 + [ct.c_int64,
                                                            ct.c_void_p]
     lib.bz2t_mtf_rank.argtypes = [ct.c_void_p] * 3 + [ct.c_int64, ct.c_void_p]
@@ -670,6 +1098,12 @@ def main() -> int:
     ap.add_argument("--old-mtf", metavar="PATH.cu",
                     help="an mtf_ranks.cu of the first design to time beside "
                     "the current MTF kernels")
+    ap.add_argument("--old-huffman", metavar="PATH.cu", action="append",
+                    default=[], help="an earlier huffman_lengths.cu to check "
+                    "against and time beside the current kernel (repeatable)")
+    ap.add_argument("--old-walk", metavar="PATH.cu", action="append",
+                    default=[], help="an earlier ibwt_walk.cu to check "
+                    "against and time beside the current kernel (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     # ---- phase 1: toolchain and card
@@ -699,6 +1133,14 @@ def main() -> int:
 
     th = threading.Thread(target=build_host)
     th.start()
+    probes = {"chase": start_probe_build(chase_probe_source(), "chase")}
+    for key, stem, path in [("mtf", "mtf_old", args.old_mtf),
+                            *((f"huffman{i}", "huffman_old", p)
+                              for i, p in enumerate(args.old_huffman)),
+                            *((f"walk{i}", "walk_old", p)
+                              for i, p in enumerate(args.old_walk))]:
+        if path:
+            probes[key] = start_probe_build(path, stem)
     so = _build.build()
     _build._load()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
@@ -778,7 +1220,9 @@ def main() -> int:
     seqm = torch.where(valid, seq, mk.PAD_SYM).reshape(-1, mk.PTILE).contiguous()
     T = seqm.shape[0] // bsz
     results["mtf_tile_last"] = compare(torch, "mtf_tile_last", mk.tile_last,
-                                       mk.tile_last_plain, (seqm, T))
+                                       mk.tile_last_plain, (seqm, T),
+                                       library=tile_last_library(torch, seqm,
+                                                                 T))
     tl = mk.tile_last(seqm, T)
     cm_ms = cuda_ms(torch, lambda: mk.carries(tl, bsz), 5)
     print(f"  carries cummax {'x'.join(map(str, tl.shape))}: {cm_ms:.4f} ms "
@@ -788,13 +1232,18 @@ def main() -> int:
     results["mtf_rank"] = compare(torch, "mtf_rank", mk.rank, mk.rank_plain,
                                   (seqm, lx), reps=3)
     if args.old_mtf:
-        old_mtf_pass(torch, args.old_mtf, seqm, tl, lx, bsz)
+        old_mtf_pass(torch, probe_lib(probes["mtf"]), args.old_mtf, seqm, tl,
+                     lx, bsz)
     mtfv, n_mtf, _ = mtf_rle2_batched(last, nt, ut)
     results["group_hist"] = compare(torch, "group_hist", mk.group_hist,
                                     mk.group_hist_plain,
-                                    (mtfv.contiguous(), n_mtf.contiguous()))
+                                    (mtfv.contiguous(), n_mtf.contiguous()),
+                                    library=group_hist_library(torch, mtfv,
+                                                               n_mtf))
     del last, seq, seqm, tl, lx, mtfv, n_mtf
-    results["huffman_lengths"] = huffman_pass(torch, rng, bt, nt, ut)
+    results["huffman_lengths"] = huffman_pass(
+        torch, rng, bt, nt, ut, old=[(probe_lib(probes[f"huffman{i}"]), p)
+                                     for i, p in enumerate(args.old_huffman)])
 
     # the walk kernel at the -9 decoder's shapes: the (tt, cur0, cap) of the
     # first batch's two waves, recorded from one decode of the stream
@@ -818,14 +1267,17 @@ def main() -> int:
         dec_ops.ibwt_walk = real_walk
 
     def walk_work(args, out):
-        """The steps taken: a 4-byte successor read and a byte written each;
-        each lane's start read and (cur, cnt, hitp) written."""
-        return (int(out[1].sum()) * 5 + tensor_bytes(args[1], *out[:3]), 0)
+        """The steps taken read a 4-byte successor each; each lane's start
+        is read and (cur, cnt, hitp) and its cap bytes of buf written."""
+        return (int(out[1].sum()) * 4 + tensor_bytes(args[1], *out), 0)
 
     walk = [compare(torch, f"ibwt_walk wave{i + 1} {'x'.join(map(str, c.shape))}"
                     f" cap {cap}", ik.ibwt_walk, ik.ibwt_walk_plain,
                     (tt, c, cap), reps=3, work=walk_work)
             for i, (tt, c, cap) in enumerate(waves)]
+    chase_pass(torch, probe_lib(probes["chase"]), rng)
+    for i, path in enumerate(args.old_walk):
+        old_walk_pass(torch, probe_lib(probes[f"walk{i}"]), path, waves)
     # one batch's walk: both waves
     results["ibwt_walk"] = {"max_abs_err": max(w["max_abs_err"] for w in walk),
                             "ms": sum(w["ms"] for w in walk),
@@ -862,6 +1314,7 @@ def main() -> int:
     # ---- phase 6: the decode path
     launches.update({k: v for k, v in decode_phase(
         torch, data, expect, len(blocks), card).items() if k in DECODE})
+    native_decode_gate(data, expect, len(blocks))
 
     # ---- phases 7 and 8: the fused mode and the scheduler
     launches["huffman_lengths"] = fused_phase(torch, data, expect,

@@ -351,6 +351,29 @@ def test_huffman_lengths_kernel_retry_and_edge_lanes(cuda_device):
 
 
 @pytest.mark.cuda
+def test_huffman_lengths_kernel_tied_keys(cuda_device):
+    """Lanes where many packed keys tie: every frequency equal, two or three
+    distinct values, zeros (which count as 1) among ones, and equal runs;
+    the heap entries carry their keys, so ties must break as the
+    reference's do."""
+    rng = np.random.default_rng(31)
+    L = 12
+    freq = np.zeros((L, 258), np.int32)
+    alpha = np.full(L, 258, np.int32)
+    freq[0] = 5
+    freq[1] = rng.integers(0, 2, 258)
+    freq[2] = rng.integers(7, 9, 258)
+    freq[3] = np.repeat([3, 1, 4, 1, 5, 9], 43)
+    freq[4, :130] = 1000
+    freq[5] = rng.integers(0, 3, 258) * 100
+    alpha[6:] = [3, 17, 64, 129, 200, 257]
+    freq[6:] = 2
+    freq[9, ::2] = 0
+    _assert_lengths_exact(torch.from_numpy(freq).to(cuda_device),
+                          torch.from_numpy(alpha).to(cuda_device))
+
+
+@pytest.mark.cuda
 def test_fused_engine_on_card(cuda_device):
     """Engine(mode="fused") on 2 MB at -9: bit-exact, every block on the
     card, the Huffman kernel 4 times a batch."""
@@ -470,6 +493,59 @@ def test_ibwt_walk_kernel_matches_plain_degenerate(cuda_device, monkeypatch):
     _assert_walks_match(waves)
     for g, e in zip(got, exp):
         assert torch.equal(g.cpu(), e)
+
+
+def _synthetic_walk(rng, B, N, W, cap, seg):
+    """tt of B single-cycle successor maps over N positions, each position
+    a splitter with chance 1/seg, random bytes; W start positions a row,
+    about one in ten inactive (-1)."""
+    tt = np.empty((B, N), np.int32)
+    for b in range(B):
+        order = rng.permutation(N)
+        succ = np.empty(N, np.int64)
+        succ[order] = np.roll(order, -1)
+        split = rng.random(N) < 1.0 / seg
+        tt[b] = (succ << 9) | (split[succ].astype(np.int64) << 8) | \
+            rng.integers(0, 256, N)
+    cur0 = rng.integers(0, N, (B, W)).astype(np.int32)
+    cur0[rng.random((B, W)) < 0.1] = -1
+    return torch.from_numpy(tt), torch.from_numpy(cur0), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,W,cap,seg", [
+    (8, 900_000, 4096, 440, 220),      # -9 wave 1
+    (8, 900_000, 1024, 6600, 1800),    # -9 wave 2
+    (8, 100_000, 4096, 50, 25),        # -1 wave 1
+    (8, 100_000, 1024, 750, 200),      # -1 wave 2
+    (2, 929_792, 4096, 440, 220),      # 16 x 58,112: a 16-CTA cluster's
+    (2, 929_793, 1024, 440, 220),      # shared memory, and one past it
+    (3, 1 << 20, 4096, 440, 220),      # the largest N ibwt accepts
+    (3, 50_001, 300, 37, 20),          # odd N, W and cap: unaligned rows
+])
+def test_ibwt_walk_kernel_synthetic(cuda_device, B, N, W, cap, seg):
+    rng = np.random.default_rng(N + W + cap)
+    tt, cur0, cap = _synthetic_walk(rng, B, N, W, cap, seg)
+    _assert_walks_match([(tt.to(cuda_device), cur0.to(cuda_device), cap)])
+
+
+@pytest.mark.cuda
+def test_ibwt_walk_kernel_matches_plain_level1(cuda_device, monkeypatch):
+    """Both waves of a real -1 batch: 8 blocks of up to 100,000."""
+    from bzip2_tpu_torch import native
+    data = ((_golden(1) + _golden(2) + _golden(3)) * 8)[:1_000_000]
+    buf = np.frombuffer(stdlib_bz2.compress(data, 1), np.uint8)
+    pbs, pos = [], 32
+    while len(pbs) < 8:
+        pb, _rc = native.parse_block(buf, pos, 1)
+        assert pb is not None
+        pbs.append(pb)
+        pos = pb.end_bit
+    waves = _record_waves(monkeypatch)
+    dmod.DeviceDecoder(device=cuda_device)._decode_batch(buf, 1, pbs)
+    torch.cuda.synchronize()
+    assert [tuple(c.shape) for _, c, _ in waves] == [(8, 4096), (8, 1024)]
+    _assert_walks_match(waves)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ from bzip2_tpu import native as jnative
 from bzip2_tpu.constants import MAX_ALPHA_SIZE as A
 from bzip2_tpu.constants import N_ITERS
 from bzip2_tpu.ops.groupsearch import group_iter as jax_group_iter
-from bzip2_tpu_torch import api, native
+from bzip2_tpu_torch import api, native, periodic, rle1
 from bzip2_tpu_torch import engine as teng
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -173,6 +173,128 @@ def test_package_compress_entry_point(rng):
                           "declines": 0}
     assert len(teng.split_blocks(data, 1)) == 2
     assert api.get_default_backend() == prev
+
+
+def _init_spy(monkeypatch):
+    """Record the arguments of every Engine built, with the process's
+    engine table emptied for the test."""
+    made = []
+    real = teng.Engine.__init__
+
+    def spy(self, **kw):
+        made.append(kw)
+        real(self, **kw)
+
+    monkeypatch.setattr(teng.Engine, "__init__", spy)
+    monkeypatch.setattr(teng, "_ENGINES", {})
+    return made
+
+
+def test_compress_reuses_one_engine_per_arguments(monkeypatch, rng):
+    """Two compress calls with the same arguments share one Engine, and its
+    scheduler rates carry over: rates that make the host look far faster
+    make the second call's device decline."""
+    import bzip2_tpu_torch
+    made = _init_spy(monkeypatch)
+    data = rng.integers(0, 200, 250_000, dtype=np.uint8).tobytes()
+    expect = stdlib_bz2.compress(data, 1)
+    kw = dict(batch_size=1, pipeline=1, host_workers=1, device="cpu")
+    assert bzip2_tpu_torch.compress(data, 1, **kw) == expect
+    (eng,) = teng._ENGINES.values()
+    eng._sched.update(host_done=100, host_time=0.01, dev_wall=10.0)
+    teng.reset_telemetry()
+    assert bzip2_tpu_torch.compress(data, 1, **dict(reversed(kw.items()))) \
+        == expect
+    assert made == [kw]
+    assert teng.SHARE["declines"] > 0
+    assert eng._sched["host_done"] > 100
+    prev = api.get_default_backend()
+    try:
+        bzip2_tpu_torch.enable_gpu_backend(**kw)
+        assert made == [kw]
+        assert api.compress(data, 1) == expect
+    finally:
+        api.set_default_backend(prev)
+    other = teng.engine_for(**dict(kw, batch_size=2))
+    assert other is not eng and len(made) == 2
+    assert teng.engine_for(**kw) is eng
+
+
+def test_default_engine_and_register_backend(monkeypatch):
+    """As the reference's: register_backend registers "gpu" without building
+    an engine; the first call builds the default engine, and every later
+    call and default_engine() return that one."""
+    made = _init_spy(monkeypatch)
+    monkeypatch.setattr(api, "_BLOCK_ENCODERS", {})
+    monkeypatch.setattr(teng, "_resolve_device", lambda d: torch.device("cpu"))
+    teng.register_backend()
+    assert made == [] and list(api._BLOCK_ENCODERS) == ["gpu"]
+    data = b"the default engine " * 700
+    for _ in range(2):
+        assert api.compress(data, 1, backend="gpu") == \
+            stdlib_bz2.compress(data, 1)
+    assert made == [{}]
+    eng = teng.default_engine()
+    assert eng is teng.engine_for() is teng._ENGINES[()]
+    assert (eng.mode, eng.pipeline, eng.host_workers) == ("hybrid", 2, 1)
+    assert len(made) == 1
+
+
+ADVERSARIAL_ROOTS = [(b"aaba", 2), (b"aaba", 4), (b"babb", 3), (b"aabab", 3),
+                     (b"baabb", 2), (b"aaab", 3)]
+
+
+@pytest.fixture(scope="module")
+def host_engine():
+    """A raw block encoder that is quick on tiny inputs: the engine in
+    host-only mode, whose native sorter, like the device's, needs the
+    corrector on these roots."""
+    return teng.Engine(use_device=False, device="cpu")
+
+
+@pytest.mark.parametrize("level", [1, 9])
+@pytest.mark.parametrize("root,m", ADVERSARIAL_ROOTS)
+def test_registry_entry_on_periodic_blocks_equals_stock(monkeypatch,
+                                                        host_engine, root, m,
+                                                        level):
+    """A registry entry called directly (as a stream compressor calls it)
+    gives stock's payloads on exactly periodic blocks: the corrector is in
+    the entry, not only in compress."""
+    monkeypatch.setattr(api, "_BLOCK_ENCODERS", {})
+    api.register_block_encoder("gpu", host_engine.encode_payloads)
+    data = root * m
+    blocks = rle1.encode_blocks(data, level)
+    expect = stdlib_bz2.compress(data, level)
+    # the raw payloads differ from stock: there is something to correct
+    assert api.frame(blocks, host_engine.encode_payloads(blocks, level),
+                     level) != expect
+    payloads = api._BLOCK_ENCODERS["gpu"](blocks, level)
+    assert api.frame(blocks, payloads, level) == expect
+
+
+@pytest.mark.parametrize("entry", ["api.compress", "compress_with",
+                                   "Engine.compress", "package compress"])
+def test_corrector_runs_once_per_compress(monkeypatch, host_engine, entry):
+    import bzip2_tpu_torch
+    calls = []
+    real = periodic.patch_payloads
+
+    def spy(payloads, blocks, level):
+        calls.append(len(blocks))
+        return real(payloads, blocks, level)
+
+    monkeypatch.setattr(periodic, "patch_payloads", spy)
+    monkeypatch.setattr(api, "_BLOCK_ENCODERS", {})
+    api.register_block_encoder("spy", host_engine.encode_payloads)
+    data = bytes(range(256)) * 1000
+    run = {"api.compress": lambda: api.compress(data, 1, backend="spy"),
+           "compress_with": lambda: api.compress_with(
+               host_engine.encode_payloads, data, 1),
+           "Engine.compress": lambda: host_engine.compress(data, 1),
+           "package compress": lambda: bzip2_tpu_torch.compress(
+               data, 1, use_device=False, device="cpu")}[entry]
+    assert run() == stdlib_bz2.compress(data, 1)
+    assert calls == [3]
 
 
 def test_batch_arrays_pads_dummy_lanes():

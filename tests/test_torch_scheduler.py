@@ -221,6 +221,7 @@ def test_package_entry_points_pass_engine_arguments(monkeypatch):
         real(self, **kw)
 
     monkeypatch.setattr(teng.Engine, "__init__", spy)
+    monkeypatch.setattr(teng, "_ENGINES", {})
     kw = dict(mode="fused", pipeline=1, host_workers=0, use_device=True,
               batch_size=1, device="cpu")
     data = b"engine arguments " * 50
