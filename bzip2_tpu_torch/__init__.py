@@ -1,7 +1,10 @@
 """bzip2_tpu_torch: the bzip2 block encoder and decoder on PyTorch and CUDA.
 
-The port of ``bzip2_tpu``'s encode engine and device block decoder to a
-PyTorch device.  The engine (``engine.Engine``) runs the reference's
+The port of ``bzip2_tpu``'s encode engine, device block decoder and user
+surfaces (one-shot ``api``, streaming ``BZ2Compressor`` /
+``BZ2Decompressor``, ``open`` / ``BZ2File``, the ``compat`` bzopen family,
+``recover`` and the ``cli``, run as ``python -m bzip2_tpu_torch.cli``) to
+a PyTorch device.  The engine (``engine.Engine``) runs the reference's
 work-stealing scheduler: device workers, each on its own CUDA stream,
 encode batches of blocks from the front of the stream while native host
 workers steal single blocks from the tail.  A device batch runs in one of
@@ -13,15 +16,32 @@ histogram), the fused mode's Huffman code lengths and the decoder's
 inverse-BWT walk are written by hand in CUDA C++ for Hopper (``csrc/``,
 built at first use by ``_build``).  The host side (stream framing in
 ``api``, ``rle1``, ``crc``, ``bitstream``, the ``periodic`` origPtr
-corrector, ``tracing``, ``hostmem`` and the C++ runtime in ``native``) is
-the port's own copy of ``bzip2_tpu``'s.  This package imports neither JAX
+corrector, ``tracing``, ``hostmem``, the surfaces and the C++ runtime in
+``native``) is the port's own copy of ``bzip2_tpu``'s.  Encoding runs on
+the card unless the caller names backend "native"; ``decompress`` here
+decodes on the card, ``api.decompress(..., backend="native")`` and the
+streaming and file readers on the host.  This package imports neither JAX
 nor ``bzip2_tpu``.
 """
 
 __version__ = "0.1.0"
 
+from .api import (BZ2Error, DataError, DataErrorMagic, UnexpectedEOF,
+                  get_default_backend, set_default_backend)
+from .stream import Compressor as BZ2Compressor
+from .stream import Decompressor as BZ2Decompressor
 from .tracing import set_verbosity, profile_trace, enable_metrics
 from .tracing import collect as collect_metrics
+
+
+def open(*args, **kwargs):  # noqa: A001  (mirror bz2.open)
+    from .file import open as _open
+    return _open(*args, **kwargs)
+
+
+def BZ2File(*args, **kwargs):
+    from .file import BZ2TFile
+    return BZ2TFile(*args, **kwargs)
 
 
 def enable_gpu_backend(**engine_kwargs) -> None:

@@ -1,14 +1,17 @@
-"""The port's one-shot compress API: stream framing around a registered
-block encoder, and the error classes of its decoder.
+"""The port's one-shot API: ``compress(bytes) -> bytes`` and
+``decompress(bytes) -> bytes``, and the error classes of its decoders.
 
-Counterpart of the parts of ``bzip2_tpu/api.py`` that the port uses: the
-error classes, the block-encoder registry (each entry wrapped with the
-exactly-periodic origPtr corrector when it is registered), the default
-backend, and the framing of ``compress`` (header, bit-spliced block
-payloads, end-of-stream magic and combined CRC).  No backend is registered
-until ``bzip2_tpu_torch.enable_gpu_backend`` or
-``bzip2_tpu_torch.engine.register_backend`` registers the port's engine as
-``"gpu"``.
+Counterpart of ``bzip2_tpu/api.py``: the error classes, the block-encoder
+registry (each entry wrapped with the exactly-periodic origPtr corrector
+when it is registered), the default backend, the framing of ``compress``
+(header, bit-spliced block payloads, end-of-stream magic and combined CRC)
+and ``decompress`` / ``decompress_with_tail``.  Two backends are known by
+name and registered at first use: ``"gpu"``, the default, is the port's
+default engine on the card (``engine.register_backend``), and ``"native"``
+is the engine with ``use_device=False`` (host workers only; the card is
+never touched).  To decode, ``"gpu"`` (the default) is the device decoder
+(``decoder.default_decoder``) and ``"native"`` the C++ whole-stream
+decoder.  There is no oracle backend: the port needs its native runtime.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ class UnexpectedEOF(BZ2Error):
 
 
 _BLOCK_ENCODERS: dict = {}
-_default_backend: str | None = None
+_default_backend: str | None = "gpu"
 
 
 def register_block_encoder(name: str, fn) -> None:
@@ -63,6 +66,39 @@ def _corrected(fn):
     return wrapped
 
 
+def _register_gpu() -> None:
+    from .engine import register_backend
+    register_backend()
+
+
+def _register_native() -> None:
+    from .engine import engine_for
+    register_block_encoder(
+        "native", lambda blocks, level: engine_for(
+            use_device=False).encode_payloads(blocks, level))
+
+
+#: the backends registered at their first use, if no entry of that name
+#: was registered before
+_AT_FIRST_USE = {"gpu": _register_gpu, "native": _register_native}
+
+
+def _known_backend(name: str) -> bool:
+    return name in _AT_FIRST_USE or name in _BLOCK_ENCODERS
+
+
+def block_encoder(name: str | None):
+    """The registry entry ``name``; "gpu" and "native" are registered at
+    first use.  Raises ValueError for a name that is neither."""
+    fn = _BLOCK_ENCODERS.get(name)
+    if fn is None and name in _AT_FIRST_USE:
+        _AT_FIRST_USE[name]()
+        fn = _BLOCK_ENCODERS.get(name)
+    if fn is None:
+        raise ValueError(f"unknown backend {name!r}")
+    return fn
+
+
 def set_default_backend(name: str | None) -> None:
     global _default_backend
     _default_backend = name
@@ -76,12 +112,8 @@ def compress(data, level: int = 9, backend: str | None = None) -> bytes:
     """Compress ``data`` into a complete single .bz2 stream."""
     if not 1 <= level <= 9:
         raise ValueError("level must be 1..9")
-    backend = backend or _default_backend
-    encoder = _BLOCK_ENCODERS.get(backend)
-    if encoder is None:
-        raise ValueError(f"unknown backend {backend!r} (none registered: "
-                         "call bzip2_tpu_torch.enable_gpu_backend())")
-    return _compress_blocks(encoder, data, level)
+    return _compress_blocks(block_encoder(backend or _default_backend),
+                            data, level)
 
 
 def compress_with(encoder, data, level: int = 9) -> bytes:
@@ -118,3 +150,38 @@ def frame(blocks: list, payloads: list, level: int) -> bytes:
     parts.append(eos.getvalue())
     buf, _ = splice(parts)
     return buf.tobytes()
+
+
+def decompress(data, multi_stream: bool = False,
+               backend: str | None = None) -> bytes:
+    """Decompress one .bz2 stream (or all concatenated streams if
+    ``multi_stream``).  Verifies both CRC layers.
+
+    Raises DataErrorMagic / DataError / UnexpectedEOF exactly where the
+    reference returns the corresponding BZ_* codes.  backend: "gpu" (the
+    default, the device decoder) or "native" (the host decoder)."""
+    out, _ = decompress_with_tail(data, multi_stream=multi_stream,
+                                  backend=backend)
+    return out
+
+
+def decompress_with_tail(data, multi_stream: bool = False,
+                         backend: str | None = None) -> tuple[bytes, int]:
+    """Like decompress(); also returns the byte offset where parsing stopped
+    (start of any trailing garbage / next stream)."""
+    backend = backend or "gpu"
+    if backend == "gpu":
+        from .decoder import default_decoder
+        return default_decoder().decompress_with_tail(
+            data, multi_stream=multi_stream)
+    if backend != "native":
+        raise ValueError(f"unknown backend {backend!r}")
+    from . import native
+    out, consumed, rc = native.decompress(data, multi_stream=multi_stream)
+    if rc == native.BZT_OK:
+        return out, consumed
+    if rc == native.BZT_DATA_ERROR_MAGIC:
+        raise DataErrorMagic("bad stream header")
+    if rc == native.BZT_UNEXPECTED_EOF:
+        raise UnexpectedEOF("stream truncated")
+    raise DataError(f"corrupt stream (native rc={rc})")

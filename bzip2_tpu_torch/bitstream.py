@@ -6,6 +6,7 @@
 represent partial streams as ``(bytes, nbits)`` pairs and provide:
 
 * ``BitWriter`` — append scalar fields (headers) and bit arrays;
+* ``BitReader`` — scalar reads for header parsing (``recover``);
 * ``splice`` — concatenate bit buffers at arbitrary bit offsets (vectorized
   byte shifting), used to merge independently-encoded blocks (possibly coming
   back from different TPU devices/hosts) into one stream.
@@ -103,3 +104,38 @@ def splice(parts: list[tuple[np.ndarray, int]]) -> tuple[np.ndarray, int]:
     for data, nbits in parts:
         w.write_bits_array(np.asarray(data, np.uint8), nbits)
     return w.getvalue()
+
+
+class BitReader:
+    """Scalar MSB-first reader over a byte buffer (header parsing)."""
+
+    def __init__(self, data, start_bit: int = 0) -> None:
+        self.data = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)
+        self.pos = start_bit          # absolute bit position
+        self.nbits = self.data.size * 8
+
+    def read(self, n: int) -> int:
+        if self.pos + n > self.nbits:
+            raise EOFError("bitstream exhausted")
+        out = 0
+        pos = self.pos
+        need = n
+        while need:
+            byte = int(self.data[pos >> 3])
+            avail = 8 - (pos & 7)
+            take = min(avail, need)
+            out = (out << take) | ((byte >> (avail - take)) & ((1 << take) - 1))
+            pos += take
+            need -= take
+        self.pos = pos
+        return out
+
+    def peek(self, n: int) -> int:
+        save = self.pos
+        try:
+            return self.read(n)
+        finally:
+            self.pos = save
+
+    def byte_align_remainder(self) -> int:
+        return (-self.pos) % 8

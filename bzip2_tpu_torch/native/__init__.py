@@ -3,11 +3,13 @@ copy of ``bzip2_tpu/native/bz2tpu_host.cpp``).
 
 Binds only what the port calls: the CRC, the RLE1 split, the periodic
 origPtr replay, the exact-heap Huffman lengths, the complete block encoder
-of the engine's host workers, the decoder's per-block
-light parse and the incremental block decoder for heals.  The library has
-a whole-stream decoder too; the port never binds it.  ``available()`` or
-the first bound call builds the library (``build.py``); a bound call
-raises if it did not build.
+of the engine's host workers, the decoder's per-block light parse, the
+incremental block decoder (heals, ``stream.Decompressor`` and the
+block-parallel decode) and the whole-stream decoder of the host
+``api.decompress`` and the member-parallel decode.  The device decoder
+never calls the whole-stream decoder.  ``available()`` or the first bound
+call builds the library (``build.py``); a bound call raises if it did not
+build.
 """
 from __future__ import annotations
 
@@ -51,6 +53,10 @@ def _load():
             ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_int64),
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int32),
             ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_int32)]
+        lib.bz2tpu_decompress.restype = ct.c_int32
+        lib.bz2tpu_decompress.argtypes = [
+            ct.c_void_p, ct.c_int64, ct.c_int32, ct.POINTER(ct.c_void_p),
+            ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64)]
         lib.bz2tpu_free.restype = None
         lib.bz2tpu_free.argtypes = [ct.c_void_p]
         lib.bz2tpu_set_rnums.restype = None
@@ -249,3 +255,25 @@ def decode_some(data, start_bit: int, level: int, combined: int):
         lib.bz2tpu_free(out_p)
     return (res, int(next_bit.value), int(level_out.value),
             int(combined_out.value), int(status.value), rc)
+
+
+def decompress(data, multi_stream: bool = False):
+    """Decode a whole stream (or every concatenated stream if
+    ``multi_stream``).  Returns (bytes, consumed, errcode); bytes is None
+    on error."""
+    lib = _need()
+    buf = _u8(data)
+    out_p = ct.c_void_p()
+    out_len = ct.c_int64()
+    consumed = ct.c_int64()
+    rc = lib.bz2tpu_decompress(
+        buf.ctypes.data_as(ct.c_void_p), buf.size,
+        1 if multi_stream else 0,
+        ct.byref(out_p), ct.byref(out_len), ct.byref(consumed))
+    if rc != BZT_OK:
+        return None, 0, rc
+    try:
+        res = ct.string_at(out_p.value, out_len.value) if out_len.value else b""
+    finally:
+        lib.bz2tpu_free(out_p)
+    return res, int(consumed.value), rc

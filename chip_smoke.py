@@ -46,13 +46,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. decode that -9 stream through bzip2_tpu_torch.decompress_with_tail
      (one warm-up, then the timed run): the bytes and the consumed length
      must be exact, every block decoded on the device, no block healed on
-     the host, the walk kernel launched, and no whole-stream host decoder
-     bound by the port's native runtime; then a -1 stream of a 2 MB
+     the host, the walk kernel launched; then a -1 stream of a 2 MB
      prefix and a two-member stream with trailing garbage, and one more -9
-     decode under torch.profiler;
+     decode under torch.profiler; a spy on native.decompress, the host's
+     whole-stream decoder, must see no call from any of these decodes;
   6b. the port's native batch decoder, native.decode_some, on the whole -9
      stream in a child process (a crash fails the run with its signal):
      every block, the bytes exact;
+  6c. the same for native.decompress, the host api.decompress's decoder:
+     the bytes and the consumed length exact;
   7. the fused mode (mode="fused", host_workers=0) on the same data, after
      one warm-up: bit-exact, round-trips, every block on the device, the
      Huffman-length kernel launched 4 times a batch, every encode kernel
@@ -65,7 +67,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      host blocks adding up to the stream's, the device runs launching every
      encode kernel and the host-only runs none; prints each run's wall,
      block split and declines and each setting's median, and profiles the
-     default setting once.
+     default setting once;
+  9. the user surfaces on the corpus written to build/smoke/: the CLI
+     (python -m bzip2_tpu_torch.cli -zkf -9) in a child process, bit-exact;
+     cli.main in process with an engine of no host worker registered as
+     "gpu": bit-exact, every block on the card, every encode kernel
+     launched, the blocks each encode_payloads call carried printed; the
+     CLI's card decode (-d -c and -t in child processes, -dkf in process:
+     exact, every block on the card, the walk kernel launched); the host
+     decode (--backend=native -d -c, a child); BZ2File write and read on
+     the defaults (device/host split printed); recover on a copy with a
+     byte flipped in block 5 (18 valid rec*.bz2, each read by
+     bz2.decompress); --backend=bogus (exit 3, no output file).  The
+     kernels line takes its launches from the in-process CLI encode and
+     decode (huffman_lengths, on the fused path only, from phase 7).
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
 """
@@ -121,6 +136,7 @@ DECODE = ("ibwt_walk",)
 HYBRID = {"pipeline": 1, "host_workers": 0}
 ROUNDS = 3          # phase 8's rounds of runs in turns
 PROBE_DIR = os.path.join(HERE, "build", "probe")
+SURFACE_DIR = os.path.join(HERE, "build", "smoke")   # phase 9's files
 CHASE_STEPS = (20_000, 220_000)   # the chase probe's two run lengths
 
 #: the chase probe: one thread follows a single-cycle permutation for
@@ -237,17 +253,26 @@ extern "C" int probe_cluster_occupancy(int n, int* out) {
 }
 """
 
-#: phase 6b's child: native.decode_some over a whole stream read from stdin
+#: phases 6b and 6c's child: a native decoder over a whole stream read from
+#: stdin, native.decode_some ("some") or native.decompress ("whole"), the
+#: whole-stream decoder of the host api.decompress
 NATIVE_DECODE = r"""
-import hashlib, json, sys
+import hashlib, json, sys, time
 sys.path.insert(0, sys.argv[1])
 from bzip2_tpu_torch import native
 stream = sys.stdin.buffer.read()
-out, nxt, level, comb, status, rc = native.decode_some(stream, 0, 0, 0)
-print(json.dumps({"rc": rc, "status": status, "next_bit": nxt,
-                  "level": level, "bytes": -1 if out is None else len(out),
-                  "sha256": None if out is None
-                  else hashlib.sha256(out).hexdigest()}))
+native.available()
+t0 = time.perf_counter()
+if sys.argv[2] == "some":
+    out, nxt, level, comb, status, rc = native.decode_some(stream, 0, 0, 0)
+    res = {"status": status, "next_bit": nxt, "level": level}
+else:
+    out, consumed, rc = native.decompress(stream, multi_stream=True)
+    res = {"consumed": consumed}
+res["seconds"] = time.perf_counter() - t0
+res.update(rc=rc, bytes=-1 if out is None else len(out),
+           sha256=None if out is None else hashlib.sha256(out).hexdigest())
+print(json.dumps(res))
 """
 
 
@@ -406,11 +431,43 @@ def profile_slice(torch, data: bytes, expect: bytes) -> None:
 
 def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
                  card: str) -> dict:
-    """Phase 6: the decode path through the port's entry points.  Returns
-    the kernel launch counts of the timed -9 decode."""
+    """Phase 6: the decode path through the port's entry points, with a
+    spy on native.decompress.  Returns the kernel launch counts of the
+    timed -9 decode."""
     import bzip2_tpu_torch
-    from bzip2_tpu_torch import _build
     from bzip2_tpu_torch import decoder as dmod
+
+    # a spy on the whole-stream host decoder: the device decoder never hands
+    # it a stream.  One call through the spy first shows that it counts.
+    whole = []
+    real_whole = dmod.native.decompress
+
+    def spy(*a, **k):
+        whole.append(len(a[0]))
+        return real_whole(*a, **k)
+
+    dmod.native.decompress = spy
+    try:
+        probe = bz2.compress(b"spy", 1)
+        if dmod.native.decompress(probe)[0] != b"spy" or whole != [len(probe)]:
+            raise AssertionError("the native.decompress spy does not count")
+        whole.clear()
+        launches = _decode_runs(torch, bzip2_tpu_torch, dmod, data, expect,
+                                n_blocks, card)
+    finally:
+        dmod.native.decompress = real_whole
+    if whole:
+        raise AssertionError(f"the device decoder called native.decompress "
+                             f"{len(whole)} times")
+    print("  native.decompress spy: no call from bzip2_tpu_torch.decompress "
+          "or DeviceDecoder in phase 6", flush=True)
+    return launches
+
+
+def _decode_runs(torch, bzip2_tpu_torch, dmod, data, expect, n_blocks,
+                 card) -> dict:
+    """Phase 6's decodes, under decode_phase's spy."""
+    from bzip2_tpu_torch import _build
 
     def clean(name, got, want):
         if got != want:
@@ -419,11 +476,6 @@ def decode_phase(torch, data: bytes, expect: bytes, n_blocks: int,
         if dmod.ANOMALIES != {"lane": 0, "batch": 0}:
             raise AssertionError(f"{name}: host heals {dmod.ANOMALIES}")
 
-    # the port never hands a stream to a host decoder whole: its native
-    # runtime binds none
-    if hasattr(dmod.native, "decompress"):
-        raise AssertionError("the port's native runtime binds a whole-stream "
-                             "decoder")
     if bzip2_tpu_torch.decompress(expect) != data:   # warm-up
         raise AssertionError("warm-up decode differs from the input")
     dmod.reset_telemetry()
@@ -1009,34 +1061,54 @@ def old_walk_pass(torch, lib, path, waves) -> None:
                   "faster, outputs equal", flush=True)
 
 
-def native_decode_gate(data: bytes, expect: bytes, n_blocks: int) -> None:
-    """Phase 6b: native.decode_some over the whole -9 stream, in a child
-    process, with the runtime phase 2 built: it must return every block's
-    bytes exactly, and a crash fails the run with its signal."""
-    import hashlib
+def _child_gate(name: str, mode: str, stream: bytes) -> tuple:
+    """Run NATIVE_DECODE's ``mode`` in a child process with ``stream`` on
+    its stdin and the runtime phase 2 built; a crash fails the run with its
+    signal.  Returns (the child's last line as JSON, wall seconds with the
+    child's start)."""
     import signal
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", NATIVE_DECODE, HERE],
-                       input=expect, capture_output=True, timeout=600)
+    r = subprocess.run([sys.executable, "-c", NATIVE_DECODE, HERE, mode],
+                       input=stream, capture_output=True, timeout=600)
     wall = time.perf_counter() - t0
     if r.returncode < 0:
         raise AssertionError(
-            "native.decode_some died with "
-            f"{signal.Signals(-r.returncode).name} on the -9 stream:\n"
-            + r.stderr.decode(errors="replace")[-2000:])
+            f"{name} died with {signal.Signals(-r.returncode).name} on the "
+            f"-{LEVEL} stream:\n" + r.stderr.decode(errors="replace")[-2000:])
     if r.returncode:
-        raise AssertionError("native.decode_some child failed:\n"
+        raise AssertionError(f"{name} child failed:\n"
                              + r.stderr.decode(errors="replace")[-2000:])
-    res = json.loads(r.stdout.decode().strip().splitlines()[-1])
+    return json.loads(r.stdout.decode().strip().splitlines()[-1]), wall
+
+
+def native_decode_gate(data: bytes, expect: bytes, n_blocks: int) -> None:
+    """Phase 6b: native.decode_some over the whole -9 stream, in a child
+    process: it must return every block's bytes exactly.  Phase 6c: the
+    same for native.decompress, the host api.decompress's whole-stream
+    decoder, with the consumed length exact."""
+    import hashlib
+    sha = hashlib.sha256(data).hexdigest()
+    res, wall = _child_gate("native.decode_some", "some", expect)
     want = {"rc": 0, "status": 1, "level": LEVEL, "bytes": len(data),
-            "sha256": hashlib.sha256(data).hexdigest()}
+            "sha256": sha}
     if ({k: res[k] for k in want} != want
             or (res["next_bit"] + 7) // 8 != len(expect)):
         raise AssertionError(f"native.decode_some on the -9 stream: {res}")
     print(f"phase 6b: native.decode_some decoded the whole -{LEVEL} stream "
           f"({n_blocks} blocks, {len(expect)} bytes) in a child process: "
-          f"{len(data)} bytes exact, consumed to the end; {wall:.3f} s with "
-          "the child's start (host clock)", flush=True)
+          f"{len(data)} bytes exact, consumed to the end; decode "
+          f"{res['seconds']:.3f} s, {wall:.3f} s with the child's start "
+          "(host clock)", flush=True)
+    res, wall = _child_gate("native.decompress", "whole", expect)
+    want = {"rc": 0, "consumed": len(expect), "bytes": len(data),
+            "sha256": sha}
+    if {k: res[k] for k in want} != want:
+        raise AssertionError(f"native.decompress on the -9 stream: {res}")
+    print(f"phase 6c: native.decompress decoded the whole -{LEVEL} stream "
+          f"in a child process: {len(data)} bytes exact, consumed "
+          f"{res['consumed']} of {len(expect)}; decode {res['seconds']:.3f} "
+          f"s = {len(data) / 1e6 / res['seconds']:.3f} MB/s, {wall:.3f} s "
+          "with the child's start (host clock)", flush=True)
 
 
 def old_mtf_pass(torch, lib, path, seqm, tl, lx, B) -> None:
@@ -1090,6 +1162,222 @@ def old_mtf_pass(torch, lib, path, seqm, tl, lx, B) -> None:
         f"{k} {v:.4f} ms" for k, v in t.items())
         + f"; rank {speedup:.2f}x faster; rank-0 share "
         f"{float((out == 0).float().mean()):.4f}", flush=True)
+
+
+def _port_cmd(args: list, name: str, stdin=None, timeout=600) -> tuple:
+    """``python -m`` the port's ``args`` in a child process from the
+    checkout; a crash fails the run with its signal.  Returns (exit code,
+    stdout bytes, stderr text, wall seconds with the child's start)."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("BZIP2", None)
+    env.pop("BZIP", None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
+                       input=stdin, capture_output=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    err = r.stderr.decode(errors="replace")
+    if r.returncode < 0:
+        raise AssertionError(f"{name} died with "
+                             f"{signal.Signals(-r.returncode).name}:\n"
+                             + err[-2000:])
+    return r.returncode, r.stdout, err, wall
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def surfaces_phase(torch, data: bytes, expect: bytes, blocks: list,
+                   card: str) -> dict:
+    """Phase 9: the user surfaces on the corpus, written to a file under
+    build/smoke/.  The CLI (python -m bzip2_tpu_torch.cli) compresses it at
+    -9 in a child process and in process (with an engine of no host worker
+    registered as "gpu" first, so that every block goes to the card, and
+    the blocks of each encode_payloads call counted), decodes it on the
+    card in child processes (-d -c, -t) and in process, and on the host
+    (--backend=native, a child); BZ2File writes and reads it on the
+    defaults; recover salvages the 18 good blocks of a copy damaged in
+    block 5; --backend=bogus exits 3 and leaves no output.  Returns the
+    launch counts of the in-process encode and decode."""
+    import shutil
+
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import _build, api, cli, engine
+    from bzip2_tpu_torch import decoder as dmod
+    from bzip2_tpu_torch.constants import BLOCK_MAGIC
+    from bzip2_tpu_torch.parallel.decode import find_bit_magics
+    n_blocks = len(blocks)
+    mb = len(data) / 1e6
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    os.makedirs(SURFACE_DIR)
+    src = os.path.join(SURFACE_DIR, "corpus")
+    with open(src, "wb") as fh:
+        fh.write(data)
+    print(f"phase 9: the surfaces on {mb:.3f} MB at -{LEVEL} "
+          f"({os.path.relpath(src, HERE)}), on {card}", flush=True)
+
+    # 1. the CLI in a child process, on its defaults
+    rc, _, err, wall = _port_cmd(["bzip2_tpu_torch.cli", "-zkf", f"-{LEVEL}",
+                                  src], "bz2t -z")
+    if rc:
+        raise AssertionError(f"bz2t -zkf -{LEVEL}: exit {rc}\n{err[-2000:]}")
+    if _read(src + ".bz2") != expect:
+        raise AssertionError(f"bz2t -zkf -{LEVEL}: stream differs from "
+                             "bz2.compress")
+    print(f"  bz2t -zkf -{LEVEL} (child, defaults): bit-exact vs bz2; wall "
+          f"{wall:.3f} s with the child's start", flush=True)
+
+    # 2. the CLI in process, every block on the card, blocks a call counted
+    calls = []
+    eng = engine.engine_for(host_workers=0)
+
+    def counted(blks, level):
+        calls.append(len(blks))
+        return eng.encode_payloads(blks, level)
+
+    api.register_block_encoder("gpu", counted)
+    os.unlink(src + ".bz2")
+    engine.reset_telemetry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-zkf", f"-{LEVEL}", src])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    enc_launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    share = dict(engine.SHARE)
+    if rc or _read(src + ".bz2") != expect:
+        raise AssertionError(f"cli.main -zkf -{LEVEL}: exit {rc} or stream "
+                             "differs from bz2.compress")
+    if share != {"blocks": n_blocks, "dev_blocks": n_blocks,
+                 "host_blocks": 0, "declines": 0}:
+        raise AssertionError(f"cli.main encode: block share {share}")
+    missing = [k for k in ENCODE if enc_launches.get(k, 0) <= 0]
+    if missing or sum(calls) != n_blocks:
+        raise AssertionError(f"cli.main encode: kernels not launched "
+                             f"{missing}, blocks a call {calls}")
+    print(f"  cli.main -zkf -{LEVEL} (in process, host_workers=0): bit-exact, "
+          f"{n_blocks} of {n_blocks} blocks on the card; wall {wall:.3f} s = "
+          f"{mb / wall:.3f} MB/s; {len(calls)} encode_payloads calls "
+          f"carrying {calls} blocks", flush=True)
+    print("  launches: " + json.dumps({k: enc_launches[k] for k in ENCODE}),
+          flush=True)
+    engine.register_backend()        # the defaults again for BZ2File below
+
+    # 3. decode on the card: -d -c and -t in child processes, then in process
+    comp = src + ".bz2"
+    rc, out, err, wall = _port_cmd(["bzip2_tpu_torch.cli", "-d", "-c", comp],
+                                   "bz2t -d -c")
+    if rc or out != data:
+        raise AssertionError(f"bz2t -d -c: exit {rc}, output "
+                             f"{'exact' if out == data else 'differs'}\n"
+                             + err[-2000:])
+    rc, _, err, twall = _port_cmd(["bzip2_tpu_torch.cli", "-t", comp],
+                                  "bz2t -t")
+    if rc:
+        raise AssertionError(f"bz2t -t: exit {rc}\n{err[-2000:]}")
+    print(f"  bz2t -d -c (child, the card): exact, wall {wall:.3f} s; bz2t -t: "
+          f"exit 0, wall {twall:.3f} s (with the child's start)", flush=True)
+    d9 = os.path.join(SURFACE_DIR, "d9")
+    shutil.copyfile(comp, d9 + ".bz2")
+    dmod.reset_telemetry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-dkf", d9 + ".bz2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dec_launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    if rc or _read(d9) != data:
+        raise AssertionError(f"cli.main -dkf: exit {rc} or output differs")
+    if (dict(dmod.SHARE) != {"blocks": n_blocks, "dev_blocks": n_blocks}
+            or dmod.ANOMALIES != {"lane": 0, "batch": 0}
+            or any(dec_launches.get(k, 0) <= 0 for k in DECODE)):
+        raise AssertionError(f"cli.main decode: share {dmod.SHARE}, heals "
+                             f"{dmod.ANOMALIES}, launches {dec_launches}")
+    print(f"  cli.main -dkf (in process, the card): exact, {n_blocks} of "
+          f"{n_blocks} blocks on the card, no host heal; wall {wall:.3f} s = "
+          f"{mb / wall:.3f} MB/s; launches " + json.dumps(
+              {k: dec_launches[k] for k in DECODE}), flush=True)
+
+    # 4. decode on the host, in a child process
+    rc, out, err, wall = _port_cmd(["bzip2_tpu_torch.cli", "--backend=native",
+                                    "-d", "-c", comp], "bz2t --backend=native")
+    if rc or out != data:
+        raise AssertionError(f"bz2t --backend=native -d -c: exit {rc}\n"
+                             + err[-2000:])
+    print(f"  bz2t --backend=native -d -c (child, the host's parallel "
+          f"decode): exact, wall {wall:.3f} s with the child's start",
+          flush=True)
+
+    # 5. BZ2File on the defaults
+    path = os.path.join(SURFACE_DIR, "file.bz2")
+    engine.reset_telemetry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with bzip2_tpu_torch.BZ2File(path, "wb", compresslevel=LEVEL) as fh:
+        for i in range(0, len(data), 1 << 20):
+            fh.write(data[i:i + (1 << 20)])
+    torch.cuda.synchronize()
+    wwall = time.perf_counter() - t0
+    share = dict(engine.SHARE)
+    launched = sum(_build.KERNELS[k].launches > 0 for k in ENCODE)
+    t0 = time.perf_counter()
+    with bzip2_tpu_torch.BZ2File(path) as fh:
+        back = fh.read()
+    rwall = time.perf_counter() - t0
+    if _read(path) != expect or back != data:
+        raise AssertionError("BZ2File: written stream or read bytes differ")
+    if share["blocks"] != n_blocks or (share["dev_blocks"]
+                                       + share["host_blocks"]) != n_blocks:
+        raise AssertionError(f"BZ2File write: block share {share}")
+    print(f"  BZ2File write (defaults): bit-exact, wall {wwall:.3f} s; device "
+          f"{share['dev_blocks']} + host {share['host_blocks']} blocks, "
+          f"{share['declines']} declines, {launched} of {len(ENCODE)} encode "
+          f"kernels launched; read (native.decode_some): exact, wall "
+          f"{rwall:.3f} s", flush=True)
+
+    # 6. recover a copy with one byte flipped in block 5
+    rec_dir = os.path.join(SURFACE_DIR, "rec")
+    os.makedirs(rec_dir)
+    starts = [int(o) for o in find_bit_magics(expect, BLOCK_MAGIC)]
+    if len(starts) != n_blocks:
+        raise AssertionError(f"{len(starts)} block magics in the stream")
+    bad = bytearray(expect)
+    bad[(starts[4] + starts[5]) // 16] ^= 0x55
+    dmg = os.path.join(rec_dir, "dmg.bz2")
+    with open(dmg, "wb") as fh:
+        fh.write(bytes(bad))
+    rc, _, err, wall = _port_cmd(["bzip2_tpu_torch.recover", dmg],
+                                 "bz2t-recover")
+    recs = sorted(f for f in os.listdir(rec_dir) if f.startswith("rec"))
+    got = b"".join(bz2.decompress(_read(os.path.join(rec_dir, f)))
+                   for f in recs)
+    lo, hi = blocks[4].raw_span
+    if rc or len(recs) != n_blocks - 1 or got != data[:lo] + data[hi:]:
+        raise AssertionError(f"recover: exit {rc}, {len(recs)} files\n"
+                             + err[-2000:])
+    print(f"  bz2t-recover on a copy damaged in block 5: {len(recs)} valid "
+          f"rec*.bz2 files, each read by bz2.decompress, the other blocks' "
+          f"bytes exact; wall {wall:.3f} s with the child's start",
+          flush=True)
+
+    # 7. an unknown backend
+    small = os.path.join(SURFACE_DIR, "small")
+    with open(small, "wb") as fh:
+        fh.write(data[:2 << 20])
+    rc, _, err, _ = _port_cmd(["bzip2_tpu_torch.cli", "--backend=bogus",
+                               "-z", small], "bz2t --backend=bogus")
+    if rc != 3 or os.path.exists(small + ".bz2"):
+        raise AssertionError(f"--backend=bogus: exit {rc}, output "
+                             f"{os.path.exists(small + '.bz2')}\n{err}")
+    print("  bz2t --backend=bogus -z: exit 3, no output file", flush=True)
+    shutil.rmtree(SURFACE_DIR)
+    return {**{k: enc_launches[k] for k in ENCODE},
+            **{k: dec_launches[k] for k in DECODE}}
 
 
 def main() -> int:
@@ -1320,6 +1608,10 @@ def main() -> int:
     launches["huffman_lengths"] = fused_phase(torch, data, expect,
                                               len(blocks), card)
     scheduler_phase(torch, data, expect, len(blocks), card)
+
+    # ---- phase 9: the user surfaces; the kernels line takes the launches
+    # of its in-process CLI encode and decode
+    launches.update(surfaces_phase(torch, data, expect, blocks, card))
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],

@@ -573,3 +573,46 @@ def test_decoder_real_heal_on_card(cuda_device, monkeypatch):
     dmod.reset_telemetry()
     assert dmod.DeviceDecoder(device=cuda_device).decompress(comp) == data
     assert dmod.ANOMALIES["lane"] > 0
+
+
+# ------------------------------------------------ surfaces (card) --
+
+@pytest.mark.cuda
+def test_bz2compressor_round_trip_on_card(cuda_device):
+    """BZ2Compressor on its default backend ("gpu", the default engine on
+    the card) over 2 MB at -9 in 1 MiB chunks, as the CLI feeds it:
+    bit-exact, every block encoded once, the encode kernels launched; then
+    BZ2Decompressor reads it back."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import engine
+    data, expect = _level9(2 << 20)
+    engine.reset_telemetry()
+    _build.reset_launches()
+    comp = bzip2_tpu_torch.BZ2Compressor(9)
+    out = b"".join(comp.compress(data[i:i + (1 << 20)])
+                   for i in range(0, len(data), 1 << 20)) + comp.flush()
+    assert out == expect
+    n = len(engine.split_blocks(data, 9))
+    assert engine.SHARE["blocks"] == n
+    assert engine.SHARE["dev_blocks"] + engine.SHARE["host_blocks"] == n
+    if engine.SHARE["dev_blocks"]:
+        assert _build.KERNELS["sort_pairs"].launches > 0
+    assert bzip2_tpu_torch.BZ2Decompressor().decompress(out) == data
+
+
+@pytest.mark.cuda
+def test_cli_decode_on_card(cuda_device, tmp_path):
+    """bz2t -d in process on a 2 MB -9 stream: the default backend decodes
+    on the card, every block on the device, the walk kernel launched."""
+    from bzip2_tpu_torch import cli
+    data, comp = _level9(2 << 20)
+    p = tmp_path / "in.bin.bz2"
+    p.write_bytes(comp)
+    dmod.reset_telemetry()
+    _build.reset_launches()
+    assert cli.main(["-dk", str(p)]) == 0
+    assert (tmp_path / "in.bin").read_bytes() == data
+    n = dmod.SHARE["blocks"]
+    assert n >= 3 and dmod.SHARE == {"blocks": n, "dev_blocks": n}
+    assert dmod.ANOMALIES == {"lane": 0, "batch": 0}
+    assert ik.WALK.launches > 0

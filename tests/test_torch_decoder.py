@@ -164,17 +164,27 @@ def test_randomised_block_goes_to_host(monkeypatch, golden):
 
 def test_device_error_propagates_without_host_fallback(golden, monkeypatch):
     """A failing device stage raises to the caller; the stream is never
-    re-decoded by a whole-stream host decoder: the port's native binds
-    none."""
-    assert not hasattr(native, "decompress")
+    re-decoded by the whole-stream host decoder (a spy on native.decompress
+    sees no call, on a failing decode and on a good one)."""
+    calls = []
+    real = native.decompress
+
+    def spy(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(native, "decompress", spy)
+    comp = stdlib_bz2.compress(golden[1][0], 1)
+    assert decompress(comp) == golden[1][0]
+    assert dmod.DeviceDecoder(device="cpu").decompress(comp) == golden[1][0]
 
     def broken(*a, **k):
         raise RuntimeError("device stage failed")
 
     monkeypatch.setattr(TD, "mtf_inverse", broken)
-    comp = stdlib_bz2.compress(golden[1][0], 1)
     with pytest.raises(RuntimeError, match="device stage failed"):
         decompress(comp)
+    assert calls == []
 
 
 def test_default_device_is_cuda():

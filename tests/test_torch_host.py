@@ -5,8 +5,9 @@ Isolation: no module of bzip2_tpu_torch (nor chip_smoke.py) imports
 bzip2_tpu, by an AST scan, and a fresh interpreter that imports every
 module of the port and runs its CPU compress and decompress holds no
 bzip2_tpu module and no jax.  Parity: constants, CRC, RLE1 split, Huffman
-lengths, the periodic origPtr replay, the block parse, the magic scan, the
-heal decoder and the stream framing give the reference's results exactly.
+lengths, the periodic origPtr replay, the block parse, the magic scans, the
+heal decoder, the whole-stream decoder, the bit reader and the stream
+framing give the reference's results exactly.
 """
 import ast
 import bz2 as stdlib_bz2
@@ -86,6 +87,11 @@ data = b"isolation " * 3000 + bytes(range(256)) * 40
 comp = bzip2_tpu_torch.compress(data, 1, batch_size=2, device="cpu")
 assert comp == bz2.compress(data, 1)
 assert bzip2_tpu_torch.decompress(comp, device="cpu") == data
+from bzip2_tpu_torch import api, parallel, stream
+c = stream.Compressor(1, backend="native")
+assert c.compress(data) + c.flush() == comp
+assert api.decompress(comp, backend="native") == data
+assert parallel.decode.decompress_parallel(comp * 2) == data * 2
 print(json.dumps({"mods": mods, "loaded": sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "bzip2_tpu"
@@ -100,8 +106,10 @@ print(json.dumps({"mods": mods, "loaded": sorted(
     assert {"bzip2_tpu_torch.api", "bzip2_tpu_torch.native",
             "bzip2_tpu_torch.parallel.decode", "bzip2_tpu_torch.decoder",
             "bzip2_tpu_torch.engine", "bzip2_tpu_torch.tracing",
-            "bzip2_tpu_torch.hostmem",
-            "bzip2_tpu_torch.ops.huffman"} <= set(out["mods"])
+            "bzip2_tpu_torch.hostmem", "bzip2_tpu_torch.ops.huffman",
+            "bzip2_tpu_torch.stream", "bzip2_tpu_torch.file",
+            "bzip2_tpu_torch.compat", "bzip2_tpu_torch.recover",
+            "bzip2_tpu_torch.cli"} <= set(out["mods"])
 
 
 def test_native_builds_from_the_port_source():
@@ -112,7 +120,11 @@ def test_native_builds_from_the_port_source():
     assert pathlib.Path(build.SRC).read_bytes() == (
         ROOT / "bzip2_tpu" / "native" / "bz2tpu_host.cpp").read_bytes()
     assert pathlib.Path(so).parent == ROOT / "build" / "bzip2_tpu_torch" / "host"
-    assert not hasattr(tnative, "decompress")
+    # every export the port binds is one of the reference's
+    bound = {n for n in dir(tnative) if not n.startswith("_")
+             and callable(getattr(tnative, n))}
+    assert "decompress" in bound
+    assert bound - {"ensure_built", "ParsedBlock"} <= set(dir(jnative))
 
 
 # --------------------------------------------------------------- parity --
@@ -261,6 +273,57 @@ def test_decode_some_matches():
     got = tnative.decode_some(bad, starts[0], 1, 0)
     assert got == jnative.decode_some(bad, starts[0], 1, 0)
     assert got[0] is None and got[5] == tnative.BZT_DATA_ERROR
+
+
+def _host_outcome(mod, blob, multi):
+    try:
+        return mod.decompress_with_tail(blob, multi, backend="native")
+    except mod.BZ2Error as e:
+        return type(e).__name__
+
+
+def test_native_decompress_matches():
+    """The whole-stream decoder: bytes, consumed length and error codes,
+    single and multi-member, with trailing garbage, truncated and
+    corrupt."""
+    data = INPUTS["text"] * 3
+    one = stdlib_bz2.compress(data, 1)
+    two = one + stdlib_bz2.compress(INPUTS["runs"], 9)
+    bad = bytearray(one)
+    bad[len(one) // 3] ^= 0x10
+    cases = [one, two, two + b"junk", one[:len(one) // 2], bytes(bad),
+             b"not bzip2", b"", stdlib_bz2.compress(b"", 9)]
+    for blob in cases:
+        for multi in (False, True):
+            got = tnative.decompress(blob, multi_stream=multi)
+            assert got == jnative.decompress(blob, multi_stream=multi)
+            assert _host_outcome(tapi, blob, multi) == _host_outcome(
+                japi, blob, multi)
+            if got[2] == tnative.BZT_OK:
+                assert tapi.decompress_with_tail(blob, multi,
+                                                 "native") == got[:2]
+    assert tnative.decompress(two, True)[:2] == (data + INPUTS["runs"],
+                                                 len(two))
+    assert tnative.decompress(bytes(bad))[2] == tnative.BZT_DATA_ERROR
+
+
+@pytest.mark.parametrize("name", ["random", "text", "one"])
+def test_bitreader_matches(name):
+    data = INPUTS[name]
+    rng = np.random.default_rng(len(data))
+    for start in (0, 3, 13):
+        got, exp = tbits.BitReader(data, start), jbits.BitReader(data, start)
+        for n in rng.integers(0, 33, 60):
+            try:
+                v = exp.read(int(n))
+            except EOFError:
+                with pytest.raises(EOFError):
+                    got.read(int(n))
+                break
+            assert got.peek(int(n)) == v or int(n) == 0
+            assert got.read(int(n)) == v
+            assert got.pos == exp.pos
+            assert got.byte_align_remainder() == exp.byte_align_remainder()
 
 
 def test_bitstream_matches():
