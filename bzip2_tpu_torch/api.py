@@ -130,12 +130,14 @@ def _compress_blocks(encoder, data, level: int) -> bytes:
     """The RLE1 blocks of ``data`` through ``encoder``, whose payloads are
     final, then framed."""
     blocks = _rle1.encode_blocks(data, level)
-    return frame(blocks, encoder(blocks, level) if blocks else [], level)
+    return frame([b.crc for b in blocks],
+                 encoder(blocks, level) if blocks else [], level)
 
 
-def frame(blocks: list, payloads: list, level: int) -> bytes:
-    """The stream of ``blocks``' final payloads: the header, the payloads
-    bit-spliced, then the end-of-stream magic and the combined CRC."""
+def frame(block_crcs: list, payloads: list, level: int) -> bytes:
+    """The stream of final block payloads, in block order, whose blocks
+    have the CRCs ``block_crcs``: the header, the payloads bit-spliced,
+    then the end-of-stream magic and the combined CRC."""
     w = BitWriter()
     w.write(C.HDR_B, 8)
     w.write(C.HDR_Z, 8)
@@ -146,7 +148,7 @@ def frame(blocks: list, payloads: list, level: int) -> bytes:
     parts.extend(payloads)
     eos = BitWriter()
     eos.write(C.EOS_MAGIC, 48)
-    eos.write(_crc.combine_block_crcs([b.crc for b in blocks]), 32)
+    eos.write(_crc.combine_block_crcs(block_crcs), 32)
     parts.append(eos.getvalue())
     buf, _ = splice(parts)
     return buf.tobytes()

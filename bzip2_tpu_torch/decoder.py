@@ -97,6 +97,99 @@ class _Marks:
         return [b - a for a, b in zip(self.t, self.t[1:])]
 
 
+def _up(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def batch_inputs(stream: np.ndarray, pbs: list, rows: bool = False) -> tuple:
+    """The numpy inputs of one batch of ParsedBlock: (words, goff, gsel,
+    gvalid, lens6, used_list, head).  ``words`` holds uint32 values as
+    int64: one flat buffer over the batch's contiguous bit span, or with
+    ``rows`` one row per block holding exactly its used words (from its
+    symbol start to one word past its end), zero-padded to the longest.
+    ``goff`` counts bits from the buffer's or the row's first word."""
+    B = len(pbs)
+    if rows:
+        wbase = [pb.sym_start_bit // 32 for pb in pbs]
+        wend = [(pb.end_bit + 31) // 32 + 1 for pb in pbs]
+        words = np.zeros((B, max(e - b for b, e in zip(wbase, wend)) * 4),
+                         np.uint8)
+        for i, (b, e) in enumerate(zip(wbase, wend)):
+            span = stream[b * 4: min(e * 4, stream.size)]
+            words[i, :span.size] = span
+    else:
+        b = min(pb.sym_start_bit for pb in pbs) // 32
+        e = (max(pb.end_bit for pb in pbs) + 31) // 32 + 1
+        wbase = [b] * B
+        span = stream[b * 4: min(e * 4, stream.size)]
+        words = np.zeros((e - b) * 4, np.uint8)
+        words[: span.size] = span
+    words = words.view(">u4").astype(np.int64)
+
+    G = max(pb.n_groups_used for pb in pbs)
+    goff = np.zeros((B, G), np.int32)
+    gsel = np.zeros((B, G), np.int32)
+    gvalid = np.zeros((B, G), bool)
+    lens6 = np.zeros((B, 6, C.MAX_ALPHA_SIZE), np.int32)
+    used_list = np.zeros((B, 256), np.int32)
+    head = np.zeros((4, B), np.int32)      # alpha, n_used, n_mtf, orig
+    for i, pb in enumerate(pbs):
+        g = pb.n_groups_used
+        goff[i, :g] = pb.group_offsets - wbase[i] * 32
+        gsel[i, :g] = pb.selectors[:g]
+        gvalid[i, :g] = True
+        lens6[i] = pb.lens
+        ul = np.flatnonzero(pb.used)
+        used_list[i, : ul.size] = ul
+        head[:, i] = (pb.n_used + 2, pb.n_used, pb.n_mtf, pb.orig_ptr)
+    return words, goff, gsel, gvalid, lens6, used_list, head
+
+
+def launch_batch(device: torch.device, level: int, inputs: tuple) -> tuple:
+    """Upload ``batch_inputs`` to ``device`` and launch the four stages on
+    the current stream: symbols (flat ``decode_symbols`` or, for word rows,
+    ``decode_symbols_rows``), MTF^-1 + RLE2, the inverse BWT (``D.ibwt``,
+    looked up at call time) and RLE1^-1.  Returns (raw bytes (B, NOUT)
+    uint8, lengths, ok flags, stage marks) without waiting for the
+    device."""
+    N = 100_000 * level
+    NOUT = N + N // 4 + 64
+    words, goff, gsel, gvalid, lens6, used_list, head = (
+        _up(a, device) for a in inputs)
+    alpha, n_used, n_mtf, orig = head
+    symbols = D.decode_symbols_rows if words.dim() == 2 else D.decode_symbols
+
+    marks = _Marks(device)
+    marks.mark()
+    lut1, lut2, ebase = D.build_tables(lens6, alpha)
+    syms = symbols(words, goff, gsel, gvalid, lut1, lut2, ebase)
+    marks.mark()
+    vals = D.mtf_inverse(syms, used_list, n_used, n_mtf)
+    last, n_out = D.rle2_expand(syms, vals, n_used, n_mtf, N)
+    marks.mark()
+    out, ok = D.ibwt(last, n_out, orig, WALKERS)
+    marks.mark()
+    raw, out_len, fits = D.rle1_inverse(out, n_out, NOUT)
+    raw8 = raw.to(torch.uint8)
+    marks.mark()
+    return raw8, out_len, ok & fits, marks
+
+
+def heal_span(stream: np.ndarray, start_bit: int, end_bit: int,
+              level: int) -> bytes:
+    """Host-decode exactly one block's bits [start_bit, end_bit)
+    (``native.decode_some``); raises DataError if the host cannot."""
+    sl = np.ascontiguousarray(stream[: (end_bit + 7) // 8])
+    out, next_bit, _lvl, _comb, _st, rc = native.decode_some(
+        sl, start_bit, level, 0)
+    if out is None or next_bit != end_bit:
+        raise DataError(f"corrupt stream (host heal rc={rc})")
+    return out
+
+
 class DeviceDecoder:
     """Batched block decoder on ``device`` (default ``"cuda"``)."""
 
@@ -106,64 +199,13 @@ class DeviceDecoder:
         self._copy = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
 
-    def _up(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     # ------------------------------------------------------------------
     def _decode_batch(self, stream: np.ndarray, level: int, pbs: list):
-        """Launch the device stages for a list of ParsedBlock; returns the
-        batch's pending result (raw bytes, lengths, ok flags, stage marks)
-        without waiting for the device."""
-        B = len(pbs)
-        N = 100_000 * level
-        NOUT = N + N // 4 + 64
-        # one flat word buffer over the batch's contiguous bit span
-        wbase = min(pb.sym_start_bit for pb in pbs) // 32
-        wend = (max(pb.end_bit for pb in pbs) + 31) // 32 + 1
-        span = stream[wbase * 4: min(wend * 4, stream.size)]
-        wbytes = np.zeros((wend - wbase) * 4, np.uint8)
-        wbytes[: span.size] = span
-        words = wbytes.view(">u4").astype(np.int64)
-
-        G = max(pb.n_groups_used for pb in pbs)
-        goff = np.zeros((B, G), np.int32)
-        gsel = np.zeros((B, G), np.int32)
-        gvalid = np.zeros((B, G), bool)
-        lens6 = np.zeros((B, 6, C.MAX_ALPHA_SIZE), np.int32)
-        used_list = np.zeros((B, 256), np.int32)
-        head = np.zeros((4, B), np.int32)      # alpha, n_used, n_mtf, orig
-        for i, pb in enumerate(pbs):
-            g = pb.n_groups_used
-            goff[i, :g] = pb.group_offsets - wbase * 32
-            gsel[i, :g] = pb.selectors[:g]
-            gvalid[i, :g] = True
-            lens6[i] = pb.lens
-            ul = np.flatnonzero(pb.used)
-            used_list[i, : ul.size] = ul
-            head[:, i] = (pb.n_used + 2, pb.n_used, pb.n_mtf, pb.orig_ptr)
-        (words, goff, gsel, gvalid, lens6, used_list, head) = (
-            self._up(a) for a in (words, goff, gsel, gvalid, lens6,
-                                  used_list, head))
-        alpha, n_used, n_mtf, orig = head
-        _add(SHARE, "blocks", B)
-
-        marks = _Marks(self.device)
-        marks.mark()
-        lut1, lut2, ebase = D.build_tables(lens6, alpha)
-        syms = D.decode_symbols(words, goff, gsel, gvalid, lut1, lut2, ebase)
-        marks.mark()
-        vals = D.mtf_inverse(syms, used_list, n_used, n_mtf)
-        last, n_out = D.rle2_expand(syms, vals, n_used, n_mtf, N)
-        marks.mark()
-        out, ok = D.ibwt(last, n_out, orig, WALKERS)
-        marks.mark()
-        raw, out_len, fits = D.rle1_inverse(out, n_out, NOUT)
-        raw8 = raw.to(torch.uint8)
-        marks.mark()
-        return raw8, out_len, ok & fits, marks
+        """Launch the device stages for a list of ParsedBlock over one flat
+        word buffer; returns the batch's pending result (raw bytes,
+        lengths, ok flags, stage marks) without waiting for the device."""
+        _add(SHARE, "blocks", len(pbs))
+        return launch_batch(self.device, level, batch_inputs(stream, pbs))
 
     def _drain_batch(self, res, pbs):
         """Wait for a batch's end event, copy its output to the host (on a
@@ -264,15 +306,6 @@ class DeviceDecoder:
             pos_bit += 32
             combined = 0
 
-            def heal_span(start_bit, end_bit):
-                """Host-decode exactly one block's bits [start, end)."""
-                sl = np.ascontiguousarray(buf[: (end_bit + 7) // 8])
-                out, next_bit, _lvl, _comb, _st, rc = native.decode_some(
-                    sl, start_bit, level, 0)
-                if out is None or next_bit != end_bit:
-                    raise DataError(f"corrupt stream (host heal rc={rc})")
-                return out
-
             def commit(res, pbs):
                 nonlocal combined
                 outs = self._drain_batch(res, pbs)
@@ -283,7 +316,8 @@ class DeviceDecoder:
                         _add(ANOMALIES, "lane")
                         sys.stderr.write("bz2tpu_torch: device lane anomaly; "
                                          "block healed on host\n")
-                        o = heal_span(pb.start_bit, pb.end_bit)
+                        o = heal_span(buf, pb.start_bit, pb.end_bit,
+                                      level)
                     combined = (((combined << 1) | (combined >> 31))
                                 & 0xFFFFFFFF) ^ pb.stored_crc
                     parts.append(o)

@@ -270,11 +270,32 @@ _STREAMS_LOCK = threading.Lock()
 
 
 def _worker_streams(device: torch.device, n: int) -> list:
+    if device.index is None:    # "cuda" and "cuda:<current>" share a pool
+        device = torch.device("cuda", torch.cuda.current_device())
     with _STREAMS_LOCK:
         pool = _STREAMS.setdefault(device, [])
         while len(pool) < n:
             pool.append(torch.cuda.Stream(device))
         return pool[:n]
+
+
+@contextlib.contextmanager
+def worker_context(device: torch.device, i: int):
+    """Run the body on ``device``'s worker stream ``i``.  The kernels
+    follow it (``_build.stream_of`` reads the thread's current stream), and
+    a ``.cpu()`` waits for its own stream only, so one worker's host round
+    trips overlap another's device stages.  A batch's tensors are made and
+    used inside its worker, on that stream; the stream first waits for the
+    work already queued on the device's current stream.  On the CPU there
+    are no streams."""
+    if device.type != "cuda":
+        yield
+        return
+    s = _worker_streams(device, i + 1)[i]
+    with torch.cuda.device(device):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            yield
 
 
 def _fetch(words, nbits) -> tuple:
@@ -283,6 +304,17 @@ def _fetch(words, nbits) -> tuple:
     nbits_np = nbits.cpu().numpy()
     need = int((int(nbits_np.max()) + 31) // 32)
     return words[:, :need].cpu().numpy().astype(np.uint32), nbits_np
+
+
+def payloads_from_words(words: np.ndarray, nbits) -> list:
+    """Per-block bit payloads from an encoder's output: row j of ``words``
+    (uint32, MSB-first) cut to its ``nbits[j]`` bits, as (uint8 array,
+    nbits) pairs for ``bitstream.splice``."""
+    out = []
+    for j, nbit in enumerate(int(x) for x in nbits):
+        by = words[j, :(nbit + 31) // 32].byteswap().view(np.uint8)
+        out.append((by[:(nbit + 7) // 8], nbit))
+    return out
 
 
 class Engine:
@@ -329,24 +361,6 @@ class Engine:
         if self.batch_size is not None:
             return self.batch_size
         return max(1, self.AUTO_BATCH_BYTES // (C.BLOCK_UNIT * level))
-
-    @contextlib.contextmanager
-    def _worker_context(self, i: int):
-        """Device worker ``i`` runs on its own CUDA stream.  The kernels
-        follow it (``_build.stream_of`` reads the thread's current stream),
-        and a ``.cpu()`` waits for its own stream only, so one worker's host
-        round trips overlap another's device stages.  A batch's tensors are
-        made and used inside its worker, on that stream; the stream first
-        waits for the work already queued on the device's current stream.
-        On the CPU there are no streams."""
-        if self.device.type != "cuda":
-            yield
-            return
-        s = _worker_streams(self.device, i + 1)[i]
-        with torch.cuda.device(self.device):
-            s.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(s):
-                yield
 
     def encode_batch(self, level, arr, ns, uses, crcs):
         """One device batch of numpy inputs -> (words uint32 (B, k) numpy,
@@ -488,15 +502,13 @@ class Engine:
                     sched["dev_wall"] = 0.8 * sched["dev_wall"] + 0.2 * wall
                 state["dev_inflight"] -= 1
             _share_add("dev_blocks", take)
-            for j in range(take):
-                nbit = int(nbits[j])
-                by = words[j, :(nbit + 31) // 32].byteswap().view(np.uint8)
-                results[s + j] = (by[:(nbit + 7) // 8], nbit)
-                record_block(s + j, nbit)
+            for j, p in enumerate(payloads_from_words(words, nbits)):
+                results[s + j] = p
+                record_block(s + j, p[1])
 
         def device_worker(i):
             try:
-                with self._worker_context(i):
+                with worker_context(self.device, i):
                     while not errors:
                         s, take = claim_front()
                         if take == 0:

@@ -806,32 +806,24 @@ static void chase_kg(const u32* tt, u8* out_all, const u32* t0, i32 nmax) {
     }
   }
 }
+
+// chase_kg<count> for 1 <= count <= KN.  The chain count must be exact: a
+// wider instance would chase chains whose starts were never set.
+template <int KN>
+static void chase_k(int count, const u32* tt, u8* out_all, const u32* t0,
+                    i32 nmax) {
+  if constexpr (KN > 1) {
+    if (count < KN) return chase_k<KN - 1>(count, tt, out_all, t0, nmax);
+  }
+  chase_kg<KN>(tt, out_all, t0, nmax);
+}
 }  // extern "C++"
 
 static void chase_batch(const DecBatch& b, i32 nmax) {
   u32 t0[DEC_K];
   for (int i = 0; i < b.count; i++)
     t0[i] = b.tt_all[(i64)i * DEC_MAXB + b.sl[i].bs.orig_ptr];
-  const u32* tt = b.tt_all;
-  u8* out = b.chase_all;
-  switch (b.count) {
-#define BZ2TPU_CK(n) case n: chase_kg<n>(tt, out, t0, nmax); break;
-    BZ2TPU_CK(1) BZ2TPU_CK(2) BZ2TPU_CK(3) BZ2TPU_CK(4)
-    BZ2TPU_CK(5) BZ2TPU_CK(6) BZ2TPU_CK(7) BZ2TPU_CK(8)
-    BZ2TPU_CK(9) BZ2TPU_CK(10) BZ2TPU_CK(11) BZ2TPU_CK(12)
-    BZ2TPU_CK(13) BZ2TPU_CK(14) BZ2TPU_CK(15) BZ2TPU_CK(16)
-    BZ2TPU_CK(17) BZ2TPU_CK(18)
-#if DEC_K >= 19
-    BZ2TPU_CK(19) BZ2TPU_CK(20) BZ2TPU_CK(21) BZ2TPU_CK(22)
-    BZ2TPU_CK(23) BZ2TPU_CK(24)
-#endif
-#if DEC_K >= 25
-    BZ2TPU_CK(25) BZ2TPU_CK(26) BZ2TPU_CK(27) BZ2TPU_CK(28)
-    BZ2TPU_CK(29) BZ2TPU_CK(30) BZ2TPU_CK(31) BZ2TPU_CK(32)
-#endif
-#undef BZ2TPU_CK
-    default: chase_kg<DEC_K>(tt, out, t0, nmax); break;
-  }
+  chase_k<DEC_K>(b.count, b.tt_all, b.chase_all, t0, nmax);
 }
 
 // RLE1-expand one chased block into ob; derandomise legacy streams inline

@@ -159,6 +159,21 @@ def decode_symbols(words, goff, gsel, gvalid, lut1, lut2, esc_base):
                         take_flat)
 
 
+def decode_symbols_rows(words, goff, gsel, gvalid, lut1, lut2, esc_base):
+    """Row-addressed variant for the mesh path: words (B, WT) int64 rows
+    (uint32 values), one per block; goff (B, G) bit offsets local to each
+    row.  Every array is batched on the block axis, so a mesh entry decodes
+    its shard of rows with no shared flat buffer to rebase."""
+    WT = words.shape[1]
+    wb8 = _byte_windows(words)                             # (B, 4*WT)
+
+    def take_rows(wb, wi):
+        return torch.gather(wb, 1, wi.clamp(0, 4 * WT - 1).to(i64))
+
+    return _symbol_scan(wb8, goff, gsel, gvalid, lut1, lut2, esc_base,
+                        take_rows)
+
+
 # ---------------------------------------------------------------- MTF^-1 ---
 
 def mtf_inverse(syms, used_list, n_used, n_mtf, n_chunks: int = MTF_CHUNKS):

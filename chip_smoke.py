@@ -80,7 +80,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      byte flipped in block 5 (18 valid rec*.bz2, each read by
      bz2.decompress); --backend=bogus (exit 3, no output file).  The
      kernels line takes its launches from the in-process CLI encode and
-     decode (huffman_lengths, on the fused path only, from phase 7).
+     decode (huffman_lengths, on the fused path only, from phase 7);
+  10a. the mesh (bzip2_tpu_torch.parallel.mesh): encode_blocks_sharded of
+     the corpus's 19 blocks on make_mesh() (the one card) and on two entries
+     of cuda:0, each warmed up once, then timed with the launch counts
+     reset: the spliced stream must equal bz2.compress(data, 9) and
+     round-trip, and every encode kernel, huffman_lengths included, must
+     have been launched; prints the walls, the blocks on each entry, the
+     launches and the peak device memory;
+  10b. decode_blocks_sharded of the -9 stream on the same two meshes, the
+     same way: exact, no host heal (mesh.HEALS), the walk kernel launched;
+     prints the walls and mesh.STAGE_WALL; profiles one more encode and
+     decode on make_mesh() (device busy share, top device ops, each hand
+     kernel's device time); then a two-member stream (exact) and a flipped
+     byte (ValueError);
+  10c. two child processes, a Gloo group over 127.0.0.1 with local mesh
+     [cuda:0] each (bzip2_tpu_torch.parallel.multihost), run
+     compress_sharded on the corpus cut at 8 MiB (each rank encodes at
+     least eight 900k blocks) and decompress_members(backend="gpu") of a
+     three-member stream, each warmed up once and then timed: rank 0's
+     stream must equal bz2.compress(data, 9) and the members' bytes be
+     exact, every kernel launched on each rank; a child's non-zero exit or
+     signal fails the run.  Prints the wall with the children's start and
+     each rank's walls.
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
 """
@@ -135,8 +157,14 @@ DECODE = ("ibwt_walk",)
 #: the device (the engine's defaults add a second worker and a host one)
 HYBRID = {"pipeline": 1, "host_workers": 0}
 ROUNDS = 3          # phase 8's rounds of runs in turns
+#: phases 6b and 6c: fresh child processes a native decoder, each with its
+#: own address layout, so a read through a stray pointer has several
+#: chances to fault
+NATIVE_RUNS = 5
 PROBE_DIR = os.path.join(HERE, "build", "probe")
 SURFACE_DIR = os.path.join(HERE, "build", "smoke")   # phase 9's files
+MESH_DIR = os.path.join(HERE, "build", "mesh")        # phase 10c's files
+MESH_CUT = 8 << 20      # phase 10c cuts the corpus here between its ranks
 CHASE_STEPS = (20_000, 220_000)   # the chase probe's two run lengths
 
 #: the chase probe: one thread follows a single-cycle permutation for
@@ -276,6 +304,71 @@ print(json.dumps(res))
 """
 
 
+#: phase 10c's child: one rank of a two-process Gloo group on the card
+#: (local mesh [cuda:0]); compress_sharded of its half of the corpus, once
+#: to warm up and once timed, then decompress_members(backend="gpu") of the
+#: three-member stream, likewise.  Rank 0 writes the stream and the decoded
+#: bytes beside the corpus; every rank prints its walls, the blocks it
+#: encoded and its kernel launches in the timed runs as its last line.
+MULTIHOST_CHILD = r"""
+import json, os, sys, time
+t_start = time.perf_counter()
+here, pid, port, tmp, cut = (sys.argv[1], int(sys.argv[2]), sys.argv[3],
+                             sys.argv[4], int(sys.argv[5]))
+sys.path.insert(0, here)
+import torch
+import torch.distributed as dist
+from bzip2_tpu_torch import _build
+from bzip2_tpu_torch.parallel import multihost
+multihost.initialize("127.0.0.1:" + port, num_processes=2, process_id=pid,
+                     local_device_count=1)
+mesh = multihost.local_mesh()
+res = {"rank": pid, "mesh": [str(d) for d in mesh.devices]}
+encoded = []
+real = multihost.encode_blocks_sharded
+def spy(m, blocks_np, *a):
+    encoded.append(blocks_np.shape[0])
+    return real(m, blocks_np, *a)
+multihost.encode_blocks_sharded = spy
+with open(os.path.join(tmp, "corpus"), "rb") as fh:
+    data = fh.read()
+shard = data[:cut] if pid == 0 else data[cut:]
+with open(os.path.join(tmp, "members.bz2"), "rb") as fh:
+    members = fh.read()
+
+def timed(fn):
+    fn()                        # warm-up: first-use costs at these shapes
+    dist.barrier()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v.launches for k, v in _build.KERNELS.items()}
+
+res["ready_s"] = time.perf_counter() - t_start
+out, res["encode_s"], res["encode_launches"] = timed(
+    lambda: multihost.compress_sharded(shard, level=9))
+res["encode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+res["blocks"] = encoded[-1] if encoded else 0
+dec, res["decode_s"], res["decode_launches"] = timed(
+    lambda: multihost.decompress_members(members, backend="gpu"))
+res["decode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+if pid == 0:
+    with open(os.path.join(tmp, "stream.bz2"), "wb") as fh:
+        fh.write(out)
+    with open(os.path.join(tmp, "members.out"), "wb") as fh:
+        fh.write(dec)
+elif out is not None or dec is not None:
+    raise SystemExit("rank 1 returned a result")
+dist.destroy_process_group()
+res["total_s"] = time.perf_counter() - t_start
+print(json.dumps(res))
+"""
+
+
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, check=True, capture_output=True,
                           text=True).stdout.strip()
@@ -330,11 +423,9 @@ def bound(nbytes: int, ops: int = 0) -> dict:
             else "operations"}
 
 
-def compare(torch, name, kern, plain, args, reps=5, library=None, work=None):
-    """Run kernel and plain version on the same inputs; demand equality.
-    ``work(args, outputs)`` gives (bytes, operations) for the bound (by
-    default each input read once and each output written once);
-    ``library`` is one PyTorch call that computes the same function."""
+def exact(torch, name, kern, plain, args) -> tuple:
+    """Run kernel and plain version once on the same inputs and demand
+    equality; returns the kernel's outputs."""
     got = kern(*args)
     exp = plain(*args)
     torch.cuda.synchronize()
@@ -350,6 +441,15 @@ def compare(torch, name, kern, plain, args, reps=5, library=None, work=None):
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain "
                              f"(max abs err {err})")
+    return got
+
+
+def compare(torch, name, kern, plain, args, reps=5, library=None, work=None):
+    """Run kernel and plain version on the same inputs; demand equality.
+    ``work(args, outputs)`` gives (bytes, operations) for the bound (by
+    default each input read once and each output written once);
+    ``library`` is one PyTorch call that computes the same function."""
+    got = exact(torch, name, kern, plain, args)
     ms = cuda_ms(torch, lambda: kern(*args), reps)
     plain_ms = cuda_ms(torch, lambda: plain(*args), reps)
     lib_ms = None if library is None else cuda_ms(torch, library, reps)
@@ -362,8 +462,8 @@ def compare(torch, name, kern, plain, args, reps=5, library=None, work=None):
     lib = "" if lib_ms is None else f"   library {lib_ms:8.3f} ms"
     print(f"  {name:14s} {shape:>14s}  kernel {ms:9.4f} ms   "
           f"plain {plain_ms:9.3f} ms   bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}){lib}   max_abs_err {err}", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+          f"({b['bound_by']}){lib}   max_abs_err 0", flush=True)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": lib_ms}
 
 
@@ -622,6 +722,67 @@ def huffman_case(torch, name, hk, freq, alpha) -> dict:
     return res
 
 
+def mtf_input(torch, last, nt, ut):
+    """The tiled MTF input of a batch's BWT output, exactly as
+    mtf_rle2_batched builds it."""
+    from bzip2_tpu_torch.ops import mtf_kernel as mk
+    pos = torch.arange(last.shape[1], device=last.device)
+    valid = pos[None, :] < nt[:, None]
+    ui = ut.to(torch.int32)
+    remap = torch.cumsum(ui, 1, dtype=torch.int32) - ui
+    seq = torch.where(valid, torch.gather(remap, 1, last.to(torch.int64)), 0)
+    seqm = torch.where(valid, seq, mk.PAD_SYM)
+    return seqm.reshape(-1, mk.PTILE).contiguous()
+
+
+def huffman_lanes(torch, bt, nt, ut) -> tuple:
+    """(freq, alpha) of a batch's first refinement pass: 6 lanes a block."""
+    from bzip2_tpu_torch.engine import encode_pre
+    from bzip2_tpu_torch.ops.groupsearch import group_iter
+    pre = encode_pre(bt, nt, ut)
+    _, freq6 = group_iter(pre[6], pre[5], pre[7])
+    freq = freq6.reshape(-1, 258).contiguous()
+    alpha = (pre[2] + 2).repeat_interleave(6).to(torch.int32).contiguous()
+    return freq, alpha
+
+
+def mesh_shape_pass(torch, blocks, rows: int) -> None:
+    """Phase 3 at a mesh batch: the first ``rows`` -9 blocks of the corpus
+    in one batch, as encode_blocks_sharded hands an entry or a rank its
+    shard (19 on the one-entry mesh, 10 on the first of two entries).  Each
+    encode kernel after the sort is held exactly against its plain version
+    on the inputs the fused encoder gives it."""
+    from bzip2_tpu_torch import engine
+    from bzip2_tpu_torch.ops import huffman as hk
+    from bzip2_tpu_torch.ops import mtf_kernel as mk
+    from bzip2_tpu_torch.ops.bwt import bwt_batched
+    from bzip2_tpu_torch.ops.mtf import mtf_rle2_batched
+    dev = torch.device("cuda")
+    arr, ns, uses, _ = engine.batch_arrays(
+        blocks[:rows], rows, engine._block_pad_size(LEVEL))
+    bt, nt, ut = engine.stage_from_numpy((arr, ns, uses), dev)
+    last, _, _ = bwt_batched(bt, nt)
+    seqm = mtf_input(torch, last, nt, ut)
+    T = seqm.shape[0] // rows
+    tl, = exact(torch, "mtf_tile_last", mk.tile_last, mk.tile_last_plain,
+                (seqm, T))
+    lx = mk.carries(tl, rows).contiguous()
+    exact(torch, "mtf_rank", mk.rank, mk.rank_plain, (seqm, lx))
+    mtfv, n_mtf, _ = mtf_rle2_batched(last, nt, ut)
+    exact(torch, "group_hist", mk.group_hist, mk.group_hist_plain,
+          (mtfv.contiguous(), n_mtf.contiguous()))
+    shapes = [seqm.shape, mtfv.shape]
+    del last, seqm, tl, lx, mtfv, n_mtf
+    freq, alpha = huffman_lanes(torch, bt, nt, ut)
+    exact(torch, "huffman_lengths", hk.make_code_lengths_lanes,
+          hk.make_code_lengths_lanes_plain, (freq, alpha))
+    shapes.append(freq.shape)
+    tiles, hist, lanes = ("x".join(map(str, sh)) for sh in shapes)
+    print(f"  mesh batch of {rows} blocks: mtf_tile_last and mtf_rank "
+          f"{tiles}, group_hist {hist}, huffman_lengths {lanes}: each exact "
+          "vs plain", flush=True)
+
+
 def huffman_pass(torch, rng, bt, nt, ut, old=()) -> dict:
     """Phase 3, the Huffman-length kernel: the 78 lanes (13 blocks x 6
     tables) of the first -9 batch's first refinement pass, then skewed
@@ -629,14 +790,8 @@ def huffman_pass(torch, rng, bt, nt, ut, old=()) -> dict:
     timed beside the hybrid path's host heap on the same lanes.  ``old``
     lists (library, path) of earlier designs to time on both sets."""
     from bzip2_tpu_torch import native
-    from bzip2_tpu_torch.engine import encode_pre
     from bzip2_tpu_torch.ops import huffman as hk
-    from bzip2_tpu_torch.ops.groupsearch import group_iter
-    pre = encode_pre(bt, nt, ut)
-    _, freq6 = group_iter(pre[6], pre[5], pre[7])
-    freq = freq6.reshape(-1, 258).contiguous()
-    alpha = (pre[2] + 2).repeat_interleave(6).to(torch.int32).contiguous()
-    del pre, freq6
+    freq, alpha = huffman_lanes(torch, bt, nt, ut)
     res = huffman_case(torch, "huffman_lengths", hk, freq, alpha)
 
     def host_heap_ms(f, a):
@@ -1082,33 +1237,40 @@ def _child_gate(name: str, mode: str, stream: bytes) -> tuple:
 
 
 def native_decode_gate(data: bytes, expect: bytes, n_blocks: int) -> None:
-    """Phase 6b: native.decode_some over the whole -9 stream, in a child
-    process: it must return every block's bytes exactly.  Phase 6c: the
-    same for native.decompress, the host api.decompress's whole-stream
-    decoder, with the consumed length exact."""
+    """Phase 6b: native.decode_some over the whole -9 stream, in NATIVE_RUNS
+    child processes: each must return every block's bytes exactly.  Phase
+    6c: the same for native.decompress, the host api.decompress's
+    whole-stream decoder, with the consumed length exact."""
     import hashlib
     sha = hashlib.sha256(data).hexdigest()
-    res, wall = _child_gate("native.decode_some", "some", expect)
-    want = {"rc": 0, "status": 1, "level": LEVEL, "bytes": len(data),
-            "sha256": sha}
-    if ({k: res[k] for k in want} != want
-            or (res["next_bit"] + 7) // 8 != len(expect)):
-        raise AssertionError(f"native.decode_some on the -9 stream: {res}")
+
+    def runs(name, mode, want, extra=lambda res: True):
+        out = []
+        for _ in range(NATIVE_RUNS):
+            res, wall = _child_gate(name, mode, expect)
+            if {k: res[k] for k in want} != want or not extra(res):
+                raise AssertionError(f"{name} on the -9 stream: {res}")
+            out.append((res["seconds"], wall))
+        dec, wall = (sorted(x) for x in zip(*out))
+        return (f"decode {dec[0]:.3f}-{dec[-1]:.3f} s, {wall[0]:.3f}-"
+                f"{wall[-1]:.3f} s with the child's start (host clock)"), dec
+
+    said, _ = runs("native.decode_some", "some",
+                   {"rc": 0, "status": 1, "level": LEVEL, "bytes": len(data),
+                    "sha256": sha},
+                   lambda res: (res["next_bit"] + 7) // 8 == len(expect))
     print(f"phase 6b: native.decode_some decoded the whole -{LEVEL} stream "
-          f"({n_blocks} blocks, {len(expect)} bytes) in a child process: "
-          f"{len(data)} bytes exact, consumed to the end; decode "
-          f"{res['seconds']:.3f} s, {wall:.3f} s with the child's start "
-          "(host clock)", flush=True)
-    res, wall = _child_gate("native.decompress", "whole", expect)
-    want = {"rc": 0, "consumed": len(expect), "bytes": len(data),
-            "sha256": sha}
-    if {k: res[k] for k in want} != want:
-        raise AssertionError(f"native.decompress on the -9 stream: {res}")
+          f"({n_blocks} blocks, {len(expect)} bytes) in each of {NATIVE_RUNS} "
+          f"child processes: {len(data)} bytes exact, consumed to the end; "
+          f"{said}", flush=True)
+    said, dec = runs("native.decompress", "whole",
+                     {"rc": 0, "consumed": len(expect), "bytes": len(data),
+                      "sha256": sha})
     print(f"phase 6c: native.decompress decoded the whole -{LEVEL} stream "
-          f"in a child process: {len(data)} bytes exact, consumed "
-          f"{res['consumed']} of {len(expect)}; decode {res['seconds']:.3f} "
-          f"s = {len(data) / 1e6 / res['seconds']:.3f} MB/s, {wall:.3f} s "
-          "with the child's start (host clock)", flush=True)
+          f"in each of {NATIVE_RUNS} child processes: {len(data)} bytes "
+          f"exact, consumed {len(expect)} of {len(expect)}; {said}; "
+          f"{len(data) / 1e6 / dec[len(dec) // 2]:.3f} MB/s at the median",
+          flush=True)
 
 
 def old_mtf_pass(torch, lib, path, seqm, tl, lx, B) -> None:
@@ -1380,6 +1542,203 @@ def surfaces_phase(torch, data: bytes, expect: bytes, blocks: list,
             **{k: dec_launches[k] for k in DECODE}}
 
 
+def _mesh_encode(torch, mesh, arrays, blocks) -> tuple:
+    """encode_blocks_sharded of the corpus's blocks, then the host splice;
+    returns (stream, encode wall s, splice wall s)."""
+    from bzip2_tpu_torch import api, engine
+    from bzip2_tpu_torch.parallel import mesh as M
+    t0 = time.perf_counter()
+    words, nbits = M.encode_blocks_sharded(
+        mesh, *arrays, engine._words_for(arrays[0].shape[1]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stream = api.frame([b.crc for b in blocks],
+                       engine.payloads_from_words(words, nbits), LEVEL)
+    return stream, t1 - t0, time.perf_counter() - t1
+
+
+def mesh_phase(torch, data: bytes, expect: bytes, blocks: list,
+               card: str) -> None:
+    """Phases 10a and 10b: encode_blocks_sharded and decode_blocks_sharded
+    on make_mesh() (the one card) and on two entries of cuda:0, each warmed
+    up once, then timed with the launch counts reset just before."""
+    from bzip2_tpu_torch import _build, engine
+    from bzip2_tpu_torch.parallel import mesh as M
+    n = len(blocks)
+    arrays = engine.batch_arrays(blocks, n, engine._block_pad_size(LEVEL))
+    meshes = [("make_mesh()", M.make_mesh()),
+              ("make_mesh(['cuda:0', 'cuda:0'])",
+               M.make_mesh(["cuda:0", "cuda:0"]))]
+    mb = len(data) / 1e6
+    print(f"phase 10a: mesh encode, {mb:.3f} MB at -{LEVEL}, {n} blocks "
+          f"(split by the port's rle1 beforehand), on {card}", flush=True)
+    for name, mesh in meshes:
+        _check_stream(f"{name} warm-up", _mesh_encode(torch, mesh, arrays,
+                                                      blocks)[0], expect, data)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out, enc_s, splice_s = _mesh_encode(torch, mesh, arrays, blocks)
+        launches = {k: _build.KERNELS[k].launches for k in FUSED}
+        _check_stream(name, out, expect, data)
+        missing = [k for k in FUSED if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name} encode: kernels not launched: "
+                                 f"{missing}")
+        shards = [e - s for s, e in M.shard_bounds(n, mesh.size)]
+        print(f"  {name}: bit-exact vs bz2 and round-tripped; "
+              f"encode_blocks_sharded {enc_s:.3f} s = {mb / enc_s:.3f} MB/s, "
+              f"host splice {splice_s:.3f} s; blocks per entry {shards}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        print("    launches: " + json.dumps(launches), flush=True)
+
+    print(f"phase 10b: mesh decode of the -{LEVEL} stream "
+          f"({len(expect)} bytes), on {card}", flush=True)
+    for name, mesh in meshes:
+        if M.decode_blocks_sharded(mesh, expect) != data:
+            raise AssertionError(f"{name}: warm-up decode differs")
+        M.reset_telemetry()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = M.decode_blocks_sharded(mesh, expect)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _build.KERNELS[k].launches for k in DECODE}
+        if got != data:
+            raise AssertionError(f"{name}: sharded decode differs")
+        if M.HEALS["lane"] or any(launches[k] <= 0 for k in DECODE):
+            raise AssertionError(f"{name} decode: heals {M.HEALS}, launches "
+                                 f"{launches}")
+        print(f"  {name}: exact, no host heal; wall {wall:.3f} s = "
+              f"{mb / wall:.3f} MB/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+              + json.dumps(launches), flush=True)
+        print("    stage walls (CUDA events, summed over the entries): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in M.STAGE_WALL.items()),
+              flush=True)
+    # one more encode and decode on the one-entry mesh under torch.profiler
+    one = meshes[0][1]
+    for what, fn, want, kernels in (
+            ("encode", lambda: _mesh_encode(torch, one, arrays, blocks)[0],
+             expect, FUSED),
+            ("decode", lambda: M.decode_blocks_sharded(one, expect), data,
+             DECODE)):
+        out = []
+        torch.cuda.reset_peak_memory_stats()
+        pwall, busy, by_name = profiled(torch, lambda: out.append(fn()))
+        if out[0] != want:
+            raise AssertionError(f"profiled one-entry mesh {what} differs")
+        total = sum(ms for ms, _ in by_name.values())
+        print(f"  profiled make_mesh() {what}: wall {pwall:.1f} ms; device "
+              f"time {total:.1f} ms, busy {busy:.1f} ms = "
+              f"{100 * busy / pwall:.1f}% of the wall; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        print_profile(by_name, kernels)
+    mesh = meshes[1][1]
+    m1, m2 = bz2.compress(data[:1 << 20], 9), bz2.compress(
+        data[1 << 20:3 << 20], 9)
+    if M.decode_blocks_sharded(mesh, m1 + m2) != data[:3 << 20]:
+        raise AssertionError("two-member sharded decode differs")
+    bad = bytearray(expect)
+    bad[len(bad) // 2] ^= 0x40
+    try:
+        M.decode_blocks_sharded(mesh, bytes(bad))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a flipped byte decoded without an error")
+    print(f"  two -9 members: exact; a flipped byte at {len(bad) // 2}: "
+          f"ValueError ({refused})", flush=True)
+
+
+def multihost_phase(torch, data: bytes, expect: bytes, card: str) -> None:
+    """Phase 10c: two child processes, a Gloo group over 127.0.0.1, each
+    with local mesh [cuda:0], run compress_sharded on the corpus cut at
+    MESH_CUT and decompress_members(backend="gpu") of a three-member
+    stream.  A child's non-zero exit or signal fails the run."""
+    import shutil
+    import signal
+    import socket
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    try:
+        with open(os.path.join(MESH_DIR, "corpus"), "wb") as fh:
+            fh.write(data)
+        half = len(data) // 4
+        want = data[:half] + data[half:2 * half] + b"small member" * 100
+        members = (bz2.compress(data[:half], 9)
+                   + bz2.compress(data[half:2 * half], 9)
+                   + bz2.compress(b"small member" * 100, 1))
+        with open(os.path.join(MESH_DIR, "members.bz2"), "wb") as fh:
+            fh.write(members)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MULTIHOST_CHILD, HERE, str(pid), str(port),
+             MESH_DIR, str(MESH_CUT)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for pid in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        res = []
+        for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+            err = se.decode(errors="replace")[-3000:]
+            if p.returncode < 0:
+                raise AssertionError(f"rank {pid} died with "
+                                     f"{signal.Signals(-p.returncode).name}:"
+                                     f"\n{err}")
+            if p.returncode:
+                raise AssertionError(f"rank {pid} exited {p.returncode}:\n"
+                                     f"{err}")
+            res.append(json.loads(so.decode().strip().splitlines()[-1]))
+        if _read(os.path.join(MESH_DIR, "stream.bz2")) != expect:
+            raise AssertionError("rank 0's stream differs from bz2.compress")
+        if _read(os.path.join(MESH_DIR, "members.out")) != want:
+            raise AssertionError("decompress_members output differs")
+        for r in res:
+            if r["mesh"] != ["cuda:0"] or r["blocks"] < 8:
+                raise AssertionError(f"rank {r['rank']}: mesh {r['mesh']}, "
+                                     f"{r['blocks']} blocks encoded")
+            missing = [k for k in FUSED if r["encode_launches"][k] <= 0] + [
+                k for k in DECODE if r["decode_launches"][k] <= 0]
+            if missing:
+                raise AssertionError(f"rank {r['rank']}: kernels not "
+                                     f"launched: {missing}")
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    mb = len(data) / 1e6
+    print(f"phase 10c: two Gloo ranks on {card}, local mesh [cuda:0] each, "
+          f"{mb:.3f} MB at -{LEVEL} cut at {MESH_CUT}: rank 0's stream equals "
+          f"bz2.compress; decompress_members(backend='gpu') of three members "
+          f"({len(members)} bytes) exact", flush=True)
+    print(f"  wall with the children's start {wall:.3f} s", flush=True)
+    for r in res:
+        print(f"  rank {r['rank']}: {r['blocks']} blocks; ready "
+              f"{r['ready_s']:.3f} s after start; compress_sharded "
+              f"{r['encode_s']:.3f} s (peak {r['encode_peak_gib']:.2f} GiB), "
+              f"decompress_members {r['decode_s']:.3f} s (peak "
+              f"{r['decode_peak_gib']:.2f} GiB), timed after a warm-up; "
+              f"child total {r['total_s']:.3f} s", flush=True)
+        print("    launches: encode " + json.dumps(
+            {k: r["encode_launches"][k] for k in FUSED}) + ", decode "
+            + json.dumps({k: r["decode_launches"][k] for k in DECODE}),
+            flush=True)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1484,6 +1843,8 @@ def main() -> int:
     results["sort_pairs"] = sort_case("sort_pairs INF",
                                       pairs(13, 1 << 20, inf_from=900_000))
     sort_case("sort_pairs dup", pairs(13, 1 << 20, span=4), reps=2)
+    # phase 10's one-entry mesh sorts all 19 blocks in one batch
+    sort_case("sort_pairs INF", pairs(19, 1 << 20, inf_from=900_000), reps=2)
     for n in _tail_ladder(1 << 20):   # the tail stages' compaction widths
         sort_case("sort_pairs", pairs(13, n), reps=2)
     sort_case("sort_pairs", pairs(2, 1 << 20))
@@ -1500,12 +1861,7 @@ def main() -> int:
     arr, ns, uses, _ = engine.batch_arrays(blocks[:bsz], bsz, N)
     bt, nt, ut = stage_from_numpy((arr, ns, uses), dev)
     last, _, _ = bwt_batched(bt, nt)
-    # the MTF input exactly as mtf_rle2_batched builds it
-    valid = torch.arange(N, device=dev)[None, :] < nt[:, None]
-    ui = ut.to(torch.int32)
-    remap = torch.cumsum(ui, 1, dtype=torch.int32) - ui
-    seq = torch.where(valid, torch.gather(remap, 1, last.to(torch.int64)), 0)
-    seqm = torch.where(valid, seq, mk.PAD_SYM).reshape(-1, mk.PTILE).contiguous()
+    seqm = mtf_input(torch, last, nt, ut)
     T = seqm.shape[0] // bsz
     results["mtf_tile_last"] = compare(torch, "mtf_tile_last", mk.tile_last,
                                        mk.tile_last_plain, (seqm, T),
@@ -1528,10 +1884,15 @@ def main() -> int:
                                     (mtfv.contiguous(), n_mtf.contiguous()),
                                     library=group_hist_library(torch, mtfv,
                                                                n_mtf))
-    del last, seq, seqm, tl, lx, mtfv, n_mtf
+    del last, seqm, tl, lx, mtfv, n_mtf
     results["huffman_lengths"] = huffman_pass(
         torch, rng, bt, nt, ut, old=[(probe_lib(probes[f"huffman{i}"]), p)
                                      for i, p in enumerate(args.old_huffman)])
+    del bt, nt, ut
+    # phase 10's batch shapes: all 19 blocks on the one-entry mesh, 10 on
+    # the first of two entries (and on rank 1 of phase 10c)
+    for rows in (len(blocks), -(-len(blocks) // 2)):
+        mesh_shape_pass(torch, blocks, rows)
 
     # the walk kernel at the -9 decoder's shapes: the (tt, cur0, cap) of the
     # first batch's two waves, recorded from one decode of the stream
@@ -1572,6 +1933,23 @@ def main() -> int:
                             "plain_ms": sum(w["plain_ms"] for w in walk),
                             "bound_ms": sum(w["bound_ms"] for w in walk),
                             "bound_by": "bytes", "library_ms": None}
+    # the one-entry mesh's walk: its two waves over all 19 blocks, recorded
+    # from one decode_blocks_sharded(make_mesh())
+    from bzip2_tpu_torch.parallel import mesh as M
+    waves.clear()
+    dec_ops.ibwt_walk = record
+    try:
+        if M.decode_blocks_sharded(M.make_mesh(), expect) != data:
+            raise AssertionError("mesh decode of the -9 stream differs")
+    finally:
+        dec_ops.ibwt_walk = real_walk
+    torch.cuda.synchronize()
+    for i, (tt, c, cap) in enumerate(waves):
+        exact(torch, "ibwt_walk", ik.ibwt_walk, ik.ibwt_walk_plain,
+              (tt, c, cap))
+        print(f"  mesh ibwt_walk wave{i + 1} {'x'.join(map(str, c.shape))} "
+              f"cap {cap} over {'x'.join(map(str, tt.shape))}: exact vs "
+              "plain", flush=True)
     del waves, walk
 
     # ---- phase 4: the slice through the port's entry point
@@ -1612,6 +1990,10 @@ def main() -> int:
     # ---- phase 9: the user surfaces; the kernels line takes the launches
     # of its in-process CLI encode and decode
     launches.update(surfaces_phase(torch, data, expect, blocks, card))
+
+    # ---- phase 10: the mesh in one process, then two processes on the card
+    mesh_phase(torch, data, expect, blocks, card)
+    multihost_phase(torch, data, expect, card)
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],

@@ -616,3 +616,55 @@ def test_cli_decode_on_card(cuda_device, tmp_path):
     assert n >= 3 and dmod.SHARE == {"blocks": n, "dev_blocks": n}
     assert dmod.ANOMALIES == {"lane": 0, "batch": 0}
     assert ik.WALK.launches > 0
+
+
+# ---------------------------------------------------- mesh (card) --
+
+def _mesh_encode(mesh, data, level):
+    """data through encode_blocks_sharded on ``mesh``, framed."""
+    from bzip2_tpu_torch import api, engine
+    from bzip2_tpu_torch.parallel import mesh as M
+    blocks = engine.split_blocks(data, level)
+    N = engine._block_pad_size(level)
+    words, nbits = M.encode_blocks_sharded(
+        mesh, *engine.batch_arrays(blocks, len(blocks), N),
+        engine._words_for(N))
+    return api.frame([b.crc for b in blocks],
+                     engine.payloads_from_words(words, nbits),
+                     level), len(blocks)
+
+
+@pytest.mark.cuda
+def test_mesh_two_entries_on_card(cuda_device):
+    """A two-entry mesh on cuda:0 at -1: the encode is bit-exact and
+    launches every encode kernel (the fused encoder, huffman_lengths
+    included); the sharded decode is exact, heals nothing and walks with
+    the kernel."""
+    from bzip2_tpu_torch.parallel import mesh as M
+    data = ((_golden(1) + _golden(2) + _golden(3)) * 2)[:700_000]
+    mesh = M.make_mesh(["cuda:0", "cuda:0"])
+    _build.reset_launches()
+    stream, n = _mesh_encode(mesh, data, 1)
+    assert n == 7 and stream == stdlib_bz2.compress(data, 1)
+    assert all(_build.KERNELS[k].launches > 0 for k in
+               ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist",
+                "huffman_lengths"))
+    M.reset_telemetry()
+    _build.reset_launches()
+    assert M.decode_blocks_sharded(mesh, stream) == data
+    assert M.HEALS["lane"] == 0 and ik.WALK.launches > 0
+    assert set(M.STAGE_WALL) == set(dmod.STAGES)
+
+
+@pytest.mark.cuda
+def test_default_mesh_on_card(cuda_device):
+    """make_mesh() takes every CUDA device; -9 encode and decode of two
+    blocks on it are exact."""
+    from bzip2_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count()))
+    data, expect = _level9(1_200_000)
+    stream, n = _mesh_encode(mesh, data, 9)
+    assert n == 2 and stream == expect
+    assert M.decode_blocks_sharded(mesh, stream) == data
