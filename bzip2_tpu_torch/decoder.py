@@ -10,11 +10,15 @@
           combined CRC
 
 Three threads overlap: the parse-ahead thread parses batch k+1, the main
-thread launches batch k's stages (all device work stays on that thread and
-the device's current stream), and the commit thread copies batch k-1's
-output to the host once an event recorded at its end has completed, checks
-its CRCs and splices it.  No stage waits on the host: stage walls are CUDA
-events, read when the batch drains.
+thread launches batch k's stages on the device's current stream, and the
+commit thread copies batch k-1's output to the host on a side stream once
+an event recorded at its end has completed, checks its CRCs and splices
+it.  No stage waits on the host: stage walls are CUDA events, read when
+the batch drains.  RLE1^-1 writes a batch's lanes into NOUT = 1.25 N + 64
+bytes each; a lane whose output is longer (runs of four equal bytes and a
+count byte expand up to 259/5) is run through RLE1^-1 again on the device
+at its own length when the batch drains (``fetch_batch``, counted in
+``WIDE``).
 
 Robustness contract (the reference's): a lane flagged by the walk budget or
 a CRC mismatch is healed on the host (``native.decode_some`` over exactly
@@ -27,6 +31,7 @@ propagates, and the stream is never re-decoded by ``native.decompress``.
 from __future__ import annotations
 
 import concurrent.futures as _cf
+import contextlib
 import os
 import sys
 import threading
@@ -56,6 +61,9 @@ STAGE_WALL: dict = {}
 ANOMALIES: dict = {"lane": 0, "batch": 0}
 #: blocks handed to the device path, and blocks whose bytes came from it
 SHARE: dict = {"blocks": 0, "dev_blocks": 0}
+#: lanes whose RLE1^-1 output passed their batch's NOUT and ran again at
+#: their own length on the device
+WIDE: dict = {"lane": 0}
 _LOCK = threading.Lock()
 
 
@@ -64,6 +72,7 @@ def reset_telemetry() -> None:
         STAGE_WALL.clear()
         ANOMALIES.update(lane=0, batch=0)
         SHARE.update(blocks=0, dev_blocks=0)
+        WIDE.update(lane=0)
 
 
 def _add(table: dict, key: str, v=1) -> None:
@@ -153,8 +162,9 @@ def launch_batch(device: torch.device, level: int, inputs: tuple) -> tuple:
     the current stream: symbols (flat ``decode_symbols`` or, for word rows,
     ``decode_symbols_rows``), MTF^-1 + RLE2, the inverse BWT (``D.ibwt``,
     looked up at call time) and RLE1^-1.  Returns (raw bytes (B, NOUT)
-    uint8, lengths, ok flags, stage marks) without waiting for the
-    device."""
+    uint8, lengths, the walk's ok flags, fits flags, stage marks, and the
+    inverse BWT's output and lengths for ``fetch_batch``) without waiting
+    for the device."""
     N = 100_000 * level
     NOUT = N + N // 4 + 64
     words, goff, gsel, gvalid, lens6, used_list, head = (
@@ -175,7 +185,33 @@ def launch_batch(device: torch.device, level: int, inputs: tuple) -> tuple:
     raw, out_len, fits = D.rle1_inverse(out, n_out, NOUT)
     raw8 = raw.to(torch.uint8)
     marks.mark()
-    return raw8, out_len, ok & fits, marks
+    return raw8, out_len, ok, fits, marks, (out, n_out)
+
+
+def fetch_batch(res, stream=None) -> tuple:
+    """Wait for a ``launch_batch`` result and copy it to the host (on
+    ``stream`` when given).  Returns (each lane's bytes, None where the
+    walk failed; the stage walls).  A lane that did not fit NOUT runs
+    RLE1^-1 again on the device at its own length (its input is the
+    walk's, already complete)."""
+    raw8, out_len, ok, fits, marks, (out, n_out) = res
+    marks.wait()
+    ctx = (torch.cuda.stream(stream) if stream is not None
+           else contextlib.nullcontext())
+    with ctx:
+        raw, lens, ok, fits = (t.cpu().numpy()
+                               for t in (raw8, out_len, ok, fits))
+        blocks = []
+        for i, n in enumerate(lens.tolist()):
+            if not ok[i]:
+                blocks.append(None)
+            elif fits[i]:
+                blocks.append(raw[i, :n].tobytes())
+            else:
+                _add(WIDE, "lane")
+                wide, _, _ = D.rle1_inverse(out[i:i + 1], n_out[i:i + 1], n)
+                blocks.append(wide[0].to(torch.uint8).cpu().numpy().tobytes())
+    return blocks, marks.walls()
 
 
 def heal_span(stream: np.ndarray, start_bit: int, end_bit: int,
@@ -212,22 +248,11 @@ class DeviceDecoder:
         side stream, so the copy does not queue behind the next batch) and
         check each block's CRC.  Returns bytes per block, None for a lane
         that needs the host."""
-        raw8, out_len, ok, marks = res
-        marks.wait()
-        if self._copy is not None:
-            with torch.cuda.stream(self._copy):
-                raw, out_len, ok = (t.cpu().numpy() for t in (raw8, out_len, ok))
-        else:
-            raw, out_len, ok = (t.numpy() for t in (raw8, out_len, ok))
-        for k, w in zip(STAGES, marks.walls()):
+        outs, walls = fetch_batch(res, self._copy)
+        for k, w in zip(STAGES, walls):
             _add(STAGE_WALL, k, w)
-        outs = []
-        for i, pb in enumerate(pbs):
-            b = raw[i, : int(out_len[i])].tobytes() if ok[i] else None
-            if b is not None and native.crc32(b) != pb.stored_crc:
-                b = None
-            outs.append(b)
-        return outs
+        return [b if b is not None and native.crc32(b) == pb.stored_crc
+                else None for b, pb in zip(outs, pbs)]
 
     # ------------------------------------------------------------------
     def decompress(self, data, multi_stream: bool = True) -> bytes:

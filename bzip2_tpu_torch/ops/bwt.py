@@ -23,6 +23,14 @@ P20 = (1 << 20) - 1
 _INIT_BYTES = 16          # initial rank depth (4 packed 32-bit keys)
 _MIRROR = 2048            # static width of the pad-mirror region
 
+#: when set, called as ``ROUND_HOOK(stage, k, unres)`` after each rank
+#: refresh of ``bwt_batched``: stage 0 for the initial 16-byte ranks and
+#: the full-width doubling rounds, 1, 2, ... for the compact tail stages;
+#: ``k`` is the prefix length the ranks now resolve and ``unres`` (B,) the
+#: positions still tied.  The measurement tools set it
+#: (``tools/bwt_stats.py``, ``tools/scale_bench.py``).
+ROUND_HOOK = None
+
 
 def _sort_cols(A, Bv):
     """Sort packed (A, B) int32 columns lexicographically, padding the width
@@ -159,6 +167,8 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     start, singleton = _gapped_rerank([hs, torch.gather(lo, 1, order64)])
     rank, tied, unres = _scatter_rank(order64.to(i32), start, singleton,
                                       valid, n, N)
+    if ROUND_HOOK is not None:
+        ROUND_HOOK(0, _INIT_BYTES, unres)
 
     ladder = _tail_ladder(N)
     cap0 = ladder[0]
@@ -183,6 +193,8 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
         rank, tied, unres = _scatter_rank(Bs & P20, start, singleton, valid,
                                           n, N)
         k *= 2
+        if ROUND_HOOK is not None:
+            ROUND_HOOK(0, k, unres)
 
     # -------------- stages 2+: compact tail refinement --------------
     # rankD has a dump column at N for discarded scatter lanes.
@@ -191,7 +203,7 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     idx_b = idx.expand(B, N)
     p_buf, r_buf = _compact_by_sort(torch.where(tied, idx_b, INF), rank, cap0)
 
-    def tail_stage(rankD, p, r1, k, unres, next_thresh):
+    def tail_stage(stage, rankD, p, r1, k, unres, next_thresh):
         C = p.shape[1]
         jc = torch.arange(C, dtype=i32, device=dev)[None, :]
         unresolved = p >= 0
@@ -221,11 +233,13 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
                            torch.where(lives, new_r1, N))
             unres = unresolved.sum(dim=1)
             p, r1, k = ps, new_r1, k * 2
+            if ROUND_HOOK is not None:
+                ROUND_HOOK(stage, k, unres)
         return rankD, p, r1, unresolved, k, unres
 
-    for cap in ladder[1:] + [0]:
+    for stage, cap in enumerate(ladder[1:] + [0], 1):
         rankD, p_buf, r_buf, unres_f, k, unres = tail_stage(
-            rankD, p_buf, r_buf, k, unres, cap)
+            stage, rankD, p_buf, r_buf, k, unres, cap)
         if cap:
             p_buf, r_buf = _compact_by_sort(
                 torch.where(unres_f, p_buf, INF), r_buf, cap)

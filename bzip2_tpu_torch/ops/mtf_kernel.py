@@ -88,6 +88,12 @@ def rank_plain(seqm: torch.Tensor, lx: torch.Tensor) -> torch.Tensor:
     the tile, else #{s seen in the tile prefix} + #{s unseen: lx[s] > lx[cur]}."""
     rows = seqm.shape[0]
     dev = seqm.device
+    live = ((seqm >= 0) & (seqm < 256)).any(dim=1)
+    if not bool(live.all()):    # tiles of padding alone rank to 0
+        out = torch.zeros((rows, PTILE), dtype=torch.int32, device=dev)
+        if bool(live.any()):
+            out[live] = rank_plain(seqm[live], lx[live])
+        return out
     out = torch.empty((rows, PTILE), dtype=torch.int32, device=dev)
     sym = torch.arange(256, dtype=torch.int32, device=dev)
     it = torch.arange(PTILE, dtype=torch.int32, device=dev)[None, :, None]

@@ -29,7 +29,8 @@ from .. import constants as C
 from .. import native
 from ..api import DataError
 from ..crc import combine_block_crcs
-from ..decoder import STAGES, batch_inputs, heal_span, launch_batch
+from ..decoder import (STAGES, batch_inputs, fetch_batch, heal_span,
+                       launch_batch)
 from ..engine import (_fetch, _resolve_device, encode_batch_device,
                       stage_from_numpy, worker_context)
 
@@ -211,24 +212,22 @@ def decode_blocks_sharded(mesh: Mesh, stream, level: int | None = None
         return b""
 
     def shard(dev, s, e):
-        raw8, out_len, ok, marks = launch_batch(
-            dev, level, batch_inputs(buf, metas[s:e], rows=True))
-        res = tuple(t.cpu().numpy() for t in (raw8, out_len, ok))
-        marks.wait()
+        res = launch_batch(dev, level,
+                           batch_inputs(buf, metas[s:e], rows=True))
+        blocks, walls = fetch_batch(res)
         with _LOCK:
-            for key, w in zip(STAGES, marks.walls()):
+            for key, w in zip(STAGES, walls):
                 STAGE_WALL[key] = STAGE_WALL.get(key, 0.0) + w
-        return res
+        return blocks
 
     parts = []
-    for s, _e, (raw, out_len, ok) in _on_entries(mesh, len(metas), shard):
-        for j in range(raw.shape[0]):
+    for s, _e, blocks in _on_entries(mesh, len(metas), shard):
+        for j, blk in enumerate(blocks):
             i = s + j
             pb = metas[i]
-            blk = raw[j, : int(out_len[j])].tobytes() if ok[j] else b""
             # the block CRC on the host: slice-by-8 C++ over bytes that are
             # gathered for the splice anyway
-            if not ok[j] or native.crc32(blk) != pb.stored_crc:
+            if blk is None or native.crc32(blk) != pb.stored_crc:
                 with _LOCK:
                     HEALS["lane"] += 1
                 try:

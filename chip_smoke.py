@@ -103,6 +103,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
      exact, every kernel launched on each rank; a child's non-zero exit or
      signal fails the run.  Prints the wall with the children's start and
      each rank's walls.
+  11a. bzip2_tpu_torch.bench's run function in process at BENCH_BYTES of
+     its corpus, -9, BENCH_ROUNDS timed rounds (the default engine, the
+     card decoder and native.decompress; stock bz2 timed once): every
+     round's stream equal to bz2.compress and both decodes exact, no block
+     of the card decode healed on the host; every encode kernel and the
+     walk launched in the timed rounds; prints each round, the medians and
+     best, the encode split, the stage walls and the launches;
+  11b. python -m bzip2_tpu_torch.bench in a child at 16 MiB and one
+     round: exit 0, and a last line of one JSON object with the keys
+     metric, value, unit and vs_baseline, bit-exact=True in its metric;
+  11c. the level matrix on MATRIX_BYTES of the corpus through the card
+     (tools/scale_bench.level_matrix): the hybrid engine with no host
+     worker at each of -1..-9, then the fused engine at -1; every stream
+     equal to bz2.compress, its card decode exact with no block healed on
+     the host, every block encoded on the card, huffman_lengths launched
+     by the fused leg; the walk's inputs of every distinct shape those
+     decodes gave it, recorded, then held exactly against the plain walk;
+     prints each level's batch shapes, walls, the lanes that ran RLE1^-1
+     again at their own width and peak device memory;
+  11d. tools/scale_bench --small --host-workers 0 in process: MATRIX_BYTES
+     through api.compress and api.decompress (no heal), then 64 MiB of
+     spew written and read back through BZ2TFile (sha256 equal), every
+     block on the card; prints the rates, the BWT's doubling rounds, peak
+     RSS, peak device memory and memory_reserved along the spew;
+  11e. each tool of TOOLS once in a child process at a small size: exit 0;
+     prints the end of each one's output.
+Phase 3 also holds the encode kernels at phase 11c's batches: at each
+of -1..-8 the first MATRIX_BYTES of the bench corpus are one batch, and
+sort_pairs at its padded width, mtf_tile_last, mtf_rank, group_hist and
+huffman_lengths on it are each held against their plain versions
+(huffman_lengths at -1 also timed).
 The last line is a JSON object naming the device.  The script imports the
 port (bzip2_tpu_torch), torch, numpy and the standard library only.
 """
@@ -166,6 +197,20 @@ SURFACE_DIR = os.path.join(HERE, "build", "smoke")   # phase 9's files
 MESH_DIR = os.path.join(HERE, "build", "mesh")        # phase 10c's files
 MESH_CUT = 8 << 20      # phase 10c cuts the corpus here between its ranks
 CHASE_STEPS = (20_000, 220_000)   # the chase probe's two run lengths
+BENCH_BYTES = 85_000_000    # phase 11a: the bench at its own scale
+BENCH_ROUNDS = 3
+MATRIX_BYTES = 10 << 20     # phase 11c's level matrix and 11d's corpus
+#: phase 11e: each tool once in a child process, at a small size
+TOOLS = (
+    ("mesh_bench", ["1", "--blocks", "4", "--decode-bytes", str(4 << 20)]),
+    ("scaling_bench", ["--entries", "1,2"]),
+    ("probe_stages", []),
+    ("profile_device", ["encode", "decode", "--bytes", str(8 << 20),
+                        "--reps", "2"]),
+    ("bwt_stats", []),
+    ("gather_probe", []),
+    ("sais_probe", [str(4 << 20)]),
+)
 
 #: the chase probe: one thread follows a single-cycle permutation for
 #: ``steps`` dependent loads, read from global memory (L2), as ibwt_walk.cu
@@ -746,12 +791,15 @@ def huffman_lanes(torch, bt, nt, ut) -> tuple:
     return freq, alpha
 
 
-def mesh_shape_pass(torch, blocks, rows: int) -> None:
-    """Phase 3 at a mesh batch: the first ``rows`` -9 blocks of the corpus
-    in one batch, as encode_blocks_sharded hands an entry or a rank its
-    shard (19 on the one-entry mesh, 10 on the first of two entries).  Each
-    encode kernel after the sort is held exactly against its plain version
-    on the inputs the fused encoder gives it."""
+def batch_shape_pass(torch, blocks, rows: int, level: int = LEVEL,
+                     huffman=None) -> None:
+    """Phase 3 at one more batch shape: the first ``rows`` blocks of
+    ``blocks`` at ``level`` in one batch, padded to that level's width: a
+    mesh shard (19 -9 blocks on the one-entry mesh, 10 on the first of two
+    entries) or phase 11c's batch at a level.  Each encode kernel after the
+    sort is held exactly against its plain version on the inputs the
+    encoder gives it; ``huffman(freq, alpha)``, when given, checks the
+    Huffman lanes in place of ``exact``."""
     from bzip2_tpu_torch import engine
     from bzip2_tpu_torch.ops import huffman as hk
     from bzip2_tpu_torch.ops import mtf_kernel as mk
@@ -759,7 +807,7 @@ def mesh_shape_pass(torch, blocks, rows: int) -> None:
     from bzip2_tpu_torch.ops.mtf import mtf_rle2_batched
     dev = torch.device("cuda")
     arr, ns, uses, _ = engine.batch_arrays(
-        blocks[:rows], rows, engine._block_pad_size(LEVEL))
+        blocks[:rows], rows, engine._block_pad_size(level))
     bt, nt, ut = engine.stage_from_numpy((arr, ns, uses), dev)
     last, _, _ = bwt_batched(bt, nt)
     seqm = mtf_input(torch, last, nt, ut)
@@ -774,11 +822,14 @@ def mesh_shape_pass(torch, blocks, rows: int) -> None:
     shapes = [seqm.shape, mtfv.shape]
     del last, seqm, tl, lx, mtfv, n_mtf
     freq, alpha = huffman_lanes(torch, bt, nt, ut)
-    exact(torch, "huffman_lengths", hk.make_code_lengths_lanes,
-          hk.make_code_lengths_lanes_plain, (freq, alpha))
+    if huffman is None:
+        exact(torch, "huffman_lengths", hk.make_code_lengths_lanes,
+              hk.make_code_lengths_lanes_plain, (freq, alpha))
+    else:
+        huffman(freq, alpha)
     shapes.append(freq.shape)
     tiles, hist, lanes = ("x".join(map(str, sh)) for sh in shapes)
-    print(f"  mesh batch of {rows} blocks: mtf_tile_last and mtf_rank "
+    print(f"  -{level} batch of {rows} blocks: mtf_tile_last and mtf_rank "
           f"{tiles}, group_hist {hist}, huffman_lengths {lanes}: each exact "
           "vs plain", flush=True)
 
@@ -1739,6 +1790,229 @@ def multihost_phase(torch, data: bytes, expect: bytes, card: str) -> None:
             flush=True)
 
 
+def level_shape_pass(torch, sort_case, pairs) -> None:
+    """Phase 3 at phase 11c's batches: the first MATRIX_BYTES of the bench
+    corpus hold one engine batch at each of -1..-8 (every block; -9's
+    width is held above).  At each level the sort at its padded width,
+    with INF lanes from the longest block's length, and batch_shape_pass;
+    at -1 huffman_lengths is also timed."""
+    from bzip2_tpu_torch import bench, engine
+    from bzip2_tpu_torch.ops import huffman as hk
+    data = bench.make_corpus(MATRIX_BYTES)
+    eng = engine.Engine(device="cuda")
+    for level in range(1, LEVEL):
+        blocks = engine.split_blocks(data, level)
+        rows = len(blocks)
+        if rows > eng._batch_size_for(level):
+            raise AssertionError(f"{rows} blocks at -{level} exceed one "
+                                 "batch")
+        N = engine._block_pad_size(level)
+        width = 1 << (N - 1).bit_length()
+        longest = max(b.data.size for b in blocks)
+        print(f"  -{level}: {rows} blocks in one batch, N={N} (sorted at "
+              f"{width}), longest {longest}", flush=True)
+        sort_case(f"sort_pairs INF -{level}",
+                  pairs(rows, width, inf_from=longest),
+                  reps=3 if level == 1 else 1)
+        timed = (lambda f, a: huffman_case(torch, "huffman_lengths -1", hk,
+                                           f, a)) if level == 1 else None
+        batch_shape_pass(torch, blocks, rows, level, huffman=timed)
+
+
+def _launch_counts() -> dict:
+    from bzip2_tpu_torch import _build
+    return {k: v.launches for k, v in _build.KERNELS.items()}
+
+
+def bench_phase(torch, card: str) -> None:
+    """Phases 11a and 11b: the port's bench in process at its scale, then
+    its module in a child at 16 MiB."""
+    from bzip2_tpu_torch import _build, bench
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = bench.run(size=BENCH_BYTES, level=LEVEL, rounds=BENCH_ROUNDS)
+    launches = res["launches"]
+    missing = [k for k in ENCODE + DECODE if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"bench: kernels not launched: {missing}")
+    if any(res["anomalies"].values()):
+        raise AssertionError(f"bench: the card decode healed on the host: "
+                             f"{res['anomalies']}")
+    sh = res["share"]
+    if sh["dev_blocks"] + sh["host_blocks"] != sh["blocks"]:
+        raise AssertionError(f"bench: blocks do not add up: {sh}")
+    mb = res["bytes"] / 1e6
+    c = res["corpus"]
+    print(f"phase 11a: bzip2_tpu_torch.bench.run, {res['bytes']} bytes at "
+          f"-{LEVEL}, {BENCH_ROUNDS} rounds on {card}: every stream equal to "
+          "bz2.compress, the card decode and native.decompress exact",
+          flush=True)
+    print(f"  corpus source {c['source']} ({c['files']} files, "
+          f"{c['walk_bytes']} bytes walked), sha256 {res['sha256']}, ratio "
+          f"{res['ratio']:.4f}", flush=True)
+    st = res["stock"]
+    print(f"  stock bz2: encode {st['encode_s']:.3f} s "
+          f"({mb / st['encode_s']:.3f} MB/s), decode {st['decode_s']:.3f} s ({mb / st['decode_s']:.3f} "
+          "MB/s)", flush=True)
+    for name, key in (("encode", "encode"), ("card decode", "decode"),
+                      ("native.decompress", "native_decode")):
+        r = res[key]
+        print(f"  {name}: runs " + " ".join(
+            f"{x:.3f}" for x in r["runs_s"]) + f" s; median "
+            f"{mb / r['median_s']:.3f} MB/s, best {mb / r['best_s']:.3f} MB/s",
+            flush=True)
+    cb = res["combined"]
+    print(f"  combined: best {cb['best']:.3f} MB/s, median {cb['median']:.3f}"
+          f" MB/s, stock {cb['stock']:.3f} MB/s; split {sh['dev_blocks']} "
+          f"device + {sh['host_blocks']} host of {sh['blocks']} blocks, "
+          f"declines {sh['declines']}; peak {res['peak']}", flush=True)
+    print("  encode stage walls: " + json.dumps(
+        {k: round(v, 4) for k, v in res["encode_walls"].items()})
+        + "; decoder stage walls: " + json.dumps(
+        {k: round(v, 4) for k, v in res["decode_walls"].items()})
+        + f"; anomalies {res['anomalies']} (none), lanes run again at "
+        f"their own RLE1 width {res['wide_lanes']}", flush=True)
+    print(f"  launches in {BENCH_ROUNDS} rounds: " + json.dumps(launches),
+          flush=True)
+    print("  result line: " + json.dumps(res["json"]), flush=True)
+
+    env = dict(os.environ, PYTHONPATH=HERE, BENCH_BYTES=str(16 << 20),
+               BENCH_ROUNDS="1")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "bzip2_tpu_torch.bench"],
+                       cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"python -m bzip2_tpu_torch.bench exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or \
+            "bit-exact=True" not in line["metric"]:
+        raise AssertionError(f"bench result line: {line}")
+    print(f"phase 11b: python -m bzip2_tpu_torch.bench at 16 MiB, 1 round: "
+          f"exit 0 in {wall:.3f} s with its start; {json.dumps(line)}",
+          flush=True)
+
+
+def level_phase(torch, card: str) -> None:
+    """Phase 11c: the -1..-9 matrix through the card, hybrid with no host
+    worker, then fused at -1.  The walk's inputs of each distinct shape
+    that the card decodes give it are recorded, and after the leg's
+    launches are read each is held exactly against ibwt_walk_plain."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import _build, bench
+    from bzip2_tpu_torch.ops import decode as dec_ops
+    from bzip2_tpu_torch.ops import ibwt_kernel as ik
+    from bzip2_tpu_torch.tools import scale_bench
+    info: dict = {}
+    data = bench.make_corpus(MATRIX_BYTES, info=info)
+    dev = torch.device("cuda")
+    print(f"phase 11c: level matrix on {bench.describe_corpus(data, info)}",
+          flush=True)
+    legs = (("hybrid", range(1, 10), {"host_workers": 0}),
+            ("fused", [1], {"mode": "fused", "host_workers": 0}))
+    real_walk = dec_ops.ibwt_walk
+    for name, levels, kw in legs:
+        waves: dict = {}
+
+        def record(tt, cur0, cap):
+            key = (tuple(tt.shape), tuple(cur0.shape), cap)
+            if key not in waves:
+                waves[key] = (tt.clone(), cur0.clone(), cap)
+            return real_walk(tt, cur0, cap)
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        dec_ops.ibwt_walk = record
+        try:
+            rows = scale_bench.level_matrix(
+                data, levels, "gpu", dev,
+                encode=lambda d, lv: bzip2_tpu_torch.compress(d, lv, **kw))
+        finally:
+            dec_ops.ibwt_walk = real_walk
+        launches = _launch_counts()
+        kernels = FUSED if name == "fused" else ENCODE
+        missing = [k for k in kernels + DECODE if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"11c {name}: kernels not launched: "
+                                 f"{missing}")
+        for r in rows:
+            sh = r["share"]
+            if sh["dev_blocks"] != sh["blocks"] or sh["host_blocks"]:
+                raise AssertionError(f"11c {name} -{r['level']}: {sh}")
+            if r["heals"]:
+                raise AssertionError(f"11c {name} -{r['level']}: "
+                                     f"{r['heals']} blocks healed on the "
+                                     "host in the card decode")
+            print(f"  {name} -{r['level']}: batches (rows x N) {r['batches']}"
+                  f", encode {r['encode_s']:.3f} s, card decode "
+                  f"{r['decode_s']:.3f} s (no heal; {r['wide']} lanes ran "
+                  f"RLE1^-1 again at their own width), ratio "
+                  f"{r['ratio']:.4f}, every block of {sh['blocks']} on the "
+                  f"card, peak {r['peak']}; bit-exact, decode exact",
+                  flush=True)
+        print(f"  {name} launches: " + json.dumps(launches), flush=True)
+        for args in waves.values():
+            exact(torch, "ibwt_walk", ik.ibwt_walk, ik.ibwt_walk_plain, args)
+        print(f"  {name}: ibwt_walk exact vs plain on each of the "
+              f"{len(waves)} wave shapes its decodes gave it: " + ", ".join(
+                  f"{'x'.join(map(str, cs))} cap {cap} over "
+                  f"{'x'.join(map(str, tts))}" for tts, cs, cap in waves),
+              flush=True)
+        del waves
+
+
+def scale_phase(torch, card: str) -> None:
+    """Phase 11d: tools/scale_bench --small --host-workers 0 in process;
+    the registry's "gpu" entry and the default decoder are put back
+    afterwards."""
+    from bzip2_tpu_torch import decoder, engine
+    from bzip2_tpu_torch.tools import scale_bench
+    try:
+        res = scale_bench.main(["--small", "--host-workers", "0"])
+    finally:
+        engine.register_backend()
+        decoder._default = None
+    for key in ("100mb", "spew"):
+        sh = res[key]["share"]
+        if sh["dev_blocks"] != sh["blocks"] or sh["host_blocks"]:
+            raise AssertionError(f"11d {key}: {sh}")
+    if res["100mb"]["heals"]:
+        raise AssertionError(f"11d: {res['100mb']['heals']} blocks healed on "
+                             "the host in the card decode")
+    a, b = res["100mb"], res["spew"]
+    print(f"phase 11d: scale_bench --small --host-workers 0 on {card}: "
+          f"{a['bytes']} bytes through api at -9 bit-exact in "
+          f"{a['encode_s']:.3f} s, decoded on the card in "
+          f"{a['decode_s']:.3f} s (no heal), "
+          f"{a['share']['blocks']} blocks on the card, peak {a['peak']}",
+          flush=True)
+    print(f"  spew {b['bytes']} bytes through BZ2TFile: written in "
+          f"{b['encode_s']:.3f} s ({b['compressed']} bytes), read back in "
+          f"{b['decode_s']:.3f} s, sha256 equal; {b['share']['blocks']} "
+          f"blocks on the card in {b['bwt_batches']} batches, "
+          f"{b['bwt_full_rounds']} full-width BWT rounds; peak RSS "
+          f"{b['rss_mb']:.0f} MB, peak device {b['peak']}, reserved "
+          f"{' -> '.join(b['reserved'])}", flush=True)
+
+
+def tools_phase(card: str) -> None:
+    """Phase 11e: each tool once in a child process; exit 0."""
+    print(f"phase 11e: the port's tools on {card}, each in a child",
+          flush=True)
+    for name, args in TOOLS:
+        rc, out, err, wall = _port_cmd(
+            [f"bzip2_tpu_torch.tools.{name}", *args], name, timeout=600)
+        if rc:
+            raise AssertionError(f"tools.{name} exited {rc}:\n{err[-3000:]}")
+        tail = (err + out.decode(errors="replace")).strip().splitlines()
+        print(f"  tools.{name} {' '.join(args)}: exit 0 in {wall:.3f} s",
+              flush=True)
+        for ln in tail[-8:]:
+            print(f"    {ln}", flush=True)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1892,7 +2166,9 @@ def main() -> int:
     # phase 10's batch shapes: all 19 blocks on the one-entry mesh, 10 on
     # the first of two entries (and on rank 1 of phase 10c)
     for rows in (len(blocks), -(-len(blocks) // 2)):
-        mesh_shape_pass(torch, blocks, rows)
+        batch_shape_pass(torch, blocks, rows)
+
+    level_shape_pass(torch, sort_case, pairs)
 
     # the walk kernel at the -9 decoder's shapes: the (tt, cur0, cap) of the
     # first batch's two waves, recorded from one decode of the stream
@@ -1994,6 +2270,12 @@ def main() -> int:
     # ---- phase 10: the mesh in one process, then two processes on the card
     mesh_phase(torch, data, expect, blocks, card)
     multihost_phase(torch, data, expect, card)
+
+    # ---- phase 11: the bench and the tools at their scales and levels
+    bench_phase(torch, card)
+    level_phase(torch, card)
+    scale_phase(torch, card)
+    tools_phase(card)
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],

@@ -564,6 +564,22 @@ def test_decoder_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_decoder_wide_rle1_lanes_on_card(cuda_device):
+    """Lanes whose RLE1^-1 output passes 1.25 N + 64 run RLE1^-1 again on
+    the card at their own length: exact, no host heal."""
+    rng = np.random.default_rng(5)
+    runs = b"".join(bytes([int(v)]) * int(k) for v, k in zip(
+        rng.integers(0, 256, 5000), rng.integers(20, 250, 5000)))
+    data = (_golden(2) * 2)[:150_000] + runs + _golden(1)[:60_000]
+    dmod.reset_telemetry()
+    dec = dmod.DeviceDecoder(device=cuda_device)
+    assert dec.decompress(stdlib_bz2.compress(data, 1)) == data
+    assert dmod.ANOMALIES == {"lane": 0, "batch": 0}
+    assert dmod.SHARE["dev_blocks"] == dmod.SHARE["blocks"] >= 2
+    assert dmod.WIDE["lane"] >= 1
+
+
+@pytest.mark.cuda
 def test_decoder_real_heal_on_card(cuda_device, monkeypatch):
     """The budget-2 heal: the host decodes the flagged -9 blocks through
     native.decode_some, built on the card's host."""

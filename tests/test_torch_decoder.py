@@ -122,6 +122,29 @@ def test_level9_realistic_zero_anomalies(golden):
     assert dmod.SHARE == {"blocks": 3, "dev_blocks": 3}
 
 
+def _runs_text(seed: int, n_runs: int) -> bytes:
+    """Runs of 20-250 equal bytes: RLE1 packs each into five bytes, so a
+    block's output is far longer than 1.25 times its RLE1 input."""
+    rng = np.random.default_rng(seed)
+    return b"".join(bytes([int(v)]) * int(k) for v, k in zip(
+        rng.integers(0, 256, n_runs), rng.integers(20, 250, n_runs)))
+
+
+@pytest.mark.parametrize("batch_size", [8, 2])
+def test_wide_rle1_lanes_decode_on_the_device(golden, batch_size):
+    """Blocks whose RLE1^-1 output passes the batch's NOUT (1.25 N + 64)
+    run RLE1^-1 again at their own length on the device: no host heal,
+    every block from the device path, beside blocks that fit."""
+    data = (golden[2][0] * 2)[:150_000] + _runs_text(5, 5000) + \
+        golden[1][0][:60_000]
+    comp = stdlib_bz2.compress(data, 1)
+    dec = dmod.DeviceDecoder(batch_size=batch_size, device="cpu")
+    assert dec.decompress(comp) == data
+    assert dmod.ANOMALIES == {"lane": 0, "batch": 0}
+    assert dmod.SHARE["dev_blocks"] == dmod.SHARE["blocks"] >= 2
+    assert dmod.WIDE["lane"] >= 1
+
+
 def test_level9_real_heal(golden, monkeypatch):
     """The real heal path: with the walk budget squeezed, wave 2 overflows
     on the ~900k blocks, the lanes flag ok False and the host heals exactly

@@ -2,12 +2,13 @@
 copy against its reference in bzip2_tpu on seeded inputs.
 
 Isolation: no module of bzip2_tpu_torch (nor chip_smoke.py) imports
-bzip2_tpu, by an AST scan, and a fresh interpreter that imports every
-module of the port and runs its CPU compress and decompress holds no
-bzip2_tpu module and no jax.  Parity: constants, CRC, RLE1 split, Huffman
-lengths, the periodic origPtr replay, the block parse, the magic scans, the
-heal decoder, the whole-stream decoder, the bit reader and the stream
-framing give the reference's results exactly.
+bzip2_tpu, jax, or the root bench.py or tools/ (the port has its own), by
+an AST scan, and a fresh interpreter that imports every module of the port
+and runs its CPU compress and decompress holds none of them.  Parity:
+constants, CRC, RLE1 split, Huffman lengths, the periodic origPtr replay,
+the block parse, the magic scans, the heal decoder, the whole-stream
+decoder, the bit reader and the stream framing give the reference's
+results exactly.
 """
 import ast
 import bz2 as stdlib_bz2
@@ -48,6 +49,11 @@ PORT_FILES = sorted(str(p.relative_to(ROOT))
     "chip_smoke.py"]
 
 
+#: top-level modules the port must not import: the JAX package, JAX, and
+#: the reference's bench and tools (the port has its own)
+FORBIDDEN = {"bzip2_tpu", "jax", "bench", "tools"}
+
+
 def _imports_bzip2_tpu(tree: ast.AST) -> list:
     bad = []
     for node in ast.walk(tree):
@@ -57,7 +63,7 @@ def _imports_bzip2_tpu(tree: ast.AST) -> list:
             names = [node.module or ""]
         else:
             continue
-        bad += [n for n in names if n.split(".")[0] == "bzip2_tpu"]
+        bad += [n for n in names if n.split(".")[0] in FORBIDDEN]
     return bad
 
 
@@ -71,8 +77,12 @@ def test_port_file_imports_no_bzip2_tpu(rel):
 
 def test_ast_scan_finds_a_reference_import():
     tree = ast.parse("import bzip2_tpu.api\nfrom bzip2_tpu import native\n"
-                     "from bzip2_tpu_torch import api\nfrom . import rle1\n")
-    assert _imports_bzip2_tpu(tree) == ["bzip2_tpu.api", "bzip2_tpu"]
+                     "from bzip2_tpu_torch import api\nfrom . import rle1\n"
+                     "import jax.numpy\nfrom bench import make_corpus\n"
+                     "from tools import scale_bench\nfrom ..bench import log\n"
+                     "from bzip2_tpu_torch.tools import bwt_stats\n")
+    assert _imports_bzip2_tpu(tree) == ["bzip2_tpu.api", "bzip2_tpu",
+                                        "jax.numpy", "bench", "tools"]
 
 
 def test_fresh_interpreter_holds_no_reference_module():
@@ -94,8 +104,7 @@ assert api.decompress(comp, backend="native") == data
 assert parallel.decode.decompress_parallel(comp * 2) == data * 2
 print(json.dumps({"mods": mods, "loaded": sorted(
     m for m in sys.modules
-    if m == "jax" or m.startswith("jax.") or m == "bzip2_tpu"
-    or m.startswith("bzip2_tpu."))}))
+    if m.split(".")[0] in ("jax", "bzip2_tpu", "bench", "tools"))}))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -109,7 +118,11 @@ print(json.dumps({"mods": mods, "loaded": sorted(
             "bzip2_tpu_torch.hostmem", "bzip2_tpu_torch.ops.huffman",
             "bzip2_tpu_torch.stream", "bzip2_tpu_torch.file",
             "bzip2_tpu_torch.compat", "bzip2_tpu_torch.recover",
-            "bzip2_tpu_torch.cli"} <= set(out["mods"])
+            "bzip2_tpu_torch.cli", "bzip2_tpu_torch.bench",
+            *(f"bzip2_tpu_torch.tools.{t}" for t in (
+                "scale_bench", "mesh_bench", "scaling_bench", "probe_stages",
+                "profile_device", "bwt_stats", "gather_probe", "sais_probe",
+                "sanitize"))} <= set(out["mods"])
 
 
 def test_native_builds_from_the_port_source():

@@ -236,6 +236,18 @@ def test_decode_blocks_sharded_level1(rng):
         TM.decode_blocks_sharded(mesh, bytes(bad), 1)
 
 
+def test_decode_blocks_sharded_wide_rle1_lane_without_heal(rng):
+    """A block whose RLE1^-1 output passes 1.25 N + 64 decodes on its
+    entry (RLE1^-1 again at its own length), not through a host heal."""
+    runs = b"".join(bytes([int(v)]) * int(k) for v, k in zip(
+        rng.integers(0, 256, 4000), rng.integers(20, 250, 4000)))
+    data = rng.integers(97, 105, 120_000, dtype=np.uint8).tobytes() + runs
+    comp = stdlib_bz2.compress(data, 1)
+    tdec.reset_telemetry()
+    assert TM.decode_blocks_sharded(_cpu_mesh(2), comp, 1) == data
+    assert TM.HEALS["lane"] == 0 and tdec.WIDE["lane"] >= 1
+
+
 @pytest.mark.parametrize("stream", [
     b"", b"BZh0" + bytes(20), stdlib_bz2.compress(b"abc", 1)[:-3]])
 def test_decode_blocks_sharded_malformed_raises(stream):
