@@ -17,11 +17,13 @@ inverse-BWT walk are written by hand in CUDA C++ for Hopper (``csrc/``,
 built at first use by ``_build``).  The host side (stream framing in
 ``api``, ``rle1``, ``crc``, ``bitstream``, the ``periodic`` origPtr
 corrector, ``tracing``, ``hostmem``, the surfaces and the C++ runtime in
-``native``) is the port's own copy of ``bzip2_tpu``'s.  Encoding runs on
-the card unless the caller names backend "native"; ``decompress`` here
-decodes on the card, ``api.decompress(..., backend="native")`` and the
-streaming and file readers on the host.  This package imports neither JAX
-nor ``bzip2_tpu``.
+``native``) is the port's own copy of ``bzip2_tpu``'s, and so is the
+NumPy reference codec in ``oracle``.  Encoding runs on the card unless the
+caller names backend "native" (the host engine) or "oracle" (the reference
+codec); ``decompress`` here decodes on the card,
+``api.decompress(..., backend="native")`` and the streaming and file
+readers on the host, and backend "oracle" in pure Python.  This package
+imports neither JAX nor ``bzip2_tpu``.
 """
 
 __version__ = "0.1.0"

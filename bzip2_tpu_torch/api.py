@@ -5,21 +5,26 @@ Counterpart of ``bzip2_tpu/api.py``: the error classes, the block-encoder
 registry (each entry wrapped with the exactly-periodic origPtr corrector
 when it is registered), the default backend, the framing of ``compress``
 (header, bit-spliced block payloads, end-of-stream magic and combined CRC)
-and ``decompress`` / ``decompress_with_tail``.  Two backends are known by
-name and registered at first use: ``"gpu"``, the default, is the port's
-default engine on the card (``engine.register_backend``), and ``"native"``
-is the engine with ``use_device=False`` (host workers only; the card is
-never touched).  To decode, ``"gpu"`` (the default) is the device decoder
-(``decoder.default_decoder``) and ``"native"`` the C++ whole-stream
-decoder.  There is no oracle backend: the port needs its native runtime.
+and ``decompress`` / ``decompress_with_tail``.  Three backends are known
+by name and registered at first use: ``"gpu"``, the default, is the port's
+default engine on the card (``engine.register_backend``), ``"native"`` is
+the engine with ``use_device=False`` (host workers only; the card is never
+touched) and ``"oracle"`` is the NumPy reference block encoder
+(``oracle.block.encode_block``, on the host).  To decode, ``"gpu"`` (the
+default) is the device decoder (``decoder.default_decoder``), ``"native"``
+the C++ whole-stream decoder and ``"oracle"`` the pure-Python one
+(``oracle.block.decode_block_body`` a block).  The oracle runs only when a
+caller names it: nothing falls back to it.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from . import constants as C
 from . import crc as _crc
 from . import periodic
 from . import rle1 as _rle1
-from .bitstream import BitWriter, splice
+from .bitstream import BitReader, BitWriter, splice
 
 
 class BZ2Error(Exception):
@@ -78,9 +83,17 @@ def _register_native() -> None:
             use_device=False).encode_payloads(blocks, level))
 
 
+def _register_oracle() -> None:
+    from .oracle import block as _oblock
+    register_block_encoder(
+        "oracle", lambda blocks, level: [_oblock.encode_block(b)
+                                         for b in blocks])
+
+
 #: the backends registered at their first use, if no entry of that name
 #: was registered before
-_AT_FIRST_USE = {"gpu": _register_gpu, "native": _register_native}
+_AT_FIRST_USE = {"gpu": _register_gpu, "native": _register_native,
+                 "oracle": _register_oracle}
 
 
 def _known_backend(name: str) -> bool:
@@ -161,7 +174,8 @@ def decompress(data, multi_stream: bool = False,
 
     Raises DataErrorMagic / DataError / UnexpectedEOF exactly where the
     reference returns the corresponding BZ_* codes.  backend: "gpu" (the
-    default, the device decoder) or "native" (the host decoder)."""
+    default, the device decoder), "native" (the host decoder) or "oracle"
+    (the pure-Python decoder)."""
     out, _ = decompress_with_tail(data, multi_stream=multi_stream,
                                   backend=backend)
     return out
@@ -176,6 +190,8 @@ def decompress_with_tail(data, multi_stream: bool = False,
         from .decoder import default_decoder
         return default_decoder().decompress_with_tail(
             data, multi_stream=multi_stream)
+    if backend == "oracle":
+        return _decompress_oracle(data, multi_stream)
     if backend != "native":
         raise ValueError(f"unknown backend {backend!r}")
     from . import native
@@ -187,3 +203,67 @@ def decompress_with_tail(data, multi_stream: bool = False,
     if rc == native.BZT_UNEXPECTED_EOF:
         raise UnexpectedEOF("stream truncated")
     raise DataError(f"corrupt stream (native rc={rc})")
+
+
+# Copied from bzip2_tpu/api.py:177-230 (the oracle branch of
+# decompress_with_tail, and _decompress_stream).
+def _decompress_oracle(data, multi_stream: bool) -> tuple[bytes, int]:
+    """The pure-Python whole-stream decoder: the streams of ``data`` one
+    block at a time through ``oracle.block.decode_block_body``."""
+    buf = np.frombuffer(bytes(data), np.uint8) \
+        if not isinstance(data, np.ndarray) else data
+    r = BitReader(buf)
+    chunks: list[bytes] = []
+    streams_done = 0
+    while True:
+        try:
+            _decompress_stream(r, chunks)
+        except EOFError:
+            raise UnexpectedEOF("stream truncated") from None
+        except DataErrorMagic:
+            if streams_done and multi_stream:
+                # Trailing garbage after at least one complete stream is
+                # tolerated (bzip2.c:531-542); report where it starts.
+                break
+            raise
+        streams_done += 1
+        # Streams are byte-aligned; skip pad bits to the next byte.
+        r.pos += r.byte_align_remainder()
+        if not multi_stream or r.pos >= r.nbits:
+            break
+    return b"".join(chunks), (r.pos + 7) // 8
+
+
+def _decompress_stream(r: BitReader, chunks: list) -> None:
+    from .oracle import block as _oblock
+    pos0 = r.pos
+    try:
+        hb, hz, hh, hl = r.read(8), r.read(8), r.read(8), r.read(8)
+    except EOFError:
+        raise DataErrorMagic("truncated header") from None
+    if (hb, hz, hh) != (C.HDR_B, C.HDR_Z, C.HDR_h) or \
+            not (C.HDR_0 + 1 <= hl <= C.HDR_0 + 9):
+        r.pos = pos0
+        raise DataErrorMagic("bad stream header")
+    level = hl - C.HDR_0
+
+    combined = 0
+    while True:
+        magic = r.read(48)
+        if magic == C.EOS_MAGIC:
+            stored_combined = r.read(32)
+            if stored_combined != combined:
+                raise DataError("combined CRC mismatch")
+            return
+        if magic != C.BLOCK_MAGIC:
+            raise DataError("bad block magic")
+        try:
+            stored_crc, raw = _oblock.decode_block_body(r, level)
+        except _oblock.DataError as e:
+            raise DataError(str(e)) from e
+        calc = _crc.crc32(raw)
+        if calc != stored_crc:
+            raise DataError("block CRC mismatch")
+        combined = (((combined << 1) | (combined >> 31)) & 0xFFFFFFFF) \
+            ^ stored_crc
+        chunks.append(raw.tobytes())

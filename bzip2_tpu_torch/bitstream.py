@@ -5,8 +5,9 @@
 (reference bsW/compress.c:58-86 writes one continuous buffer).  We therefore
 represent partial streams as ``(bytes, nbits)`` pairs and provide:
 
-* ``BitWriter`` — append scalar fields (headers) and bit arrays;
-* ``BitReader`` — scalar reads for header parsing (``recover``);
+* ``BitWriter`` — append scalar fields (headers) and vectorized code arrays
+  (Huffman payload) without per-symbol Python;
+* ``BitReader`` — scalar reads for header parsing (``recover``, the oracle);
 * ``splice`` — concatenate bit buffers at arbitrary bit offsets (vectorized
   byte shifting), used to merge independently-encoded blocks (possibly coming
   back from different TPU devices/hosts) into one stream.
@@ -39,6 +40,28 @@ class BitWriter:
         self._accn += nbits
         if self._accn >= 64:
             self._flush_acc_bytes()
+
+    def write_codes(self, codes: np.ndarray, lens: np.ndarray) -> None:
+        """Append many (code, len) pairs, vectorized.
+
+        Bit-disjoint contributions are scattered into 32-bit words with
+        ``np.add.at`` (adds == ORs because regions never overlap), then the
+        word array is re-appended at the current (arbitrary) bit offset.
+        """
+        if codes.size == 0:
+            return
+        lens = lens.astype(np.int64)
+        offs = np.cumsum(lens) - lens  # exclusive prefix sum
+        total = int(offs[-1] + lens[-1])
+        nwords = (total + 63) // 32 + 2
+        words = np.zeros(nwords, np.uint32)
+        w = (offs >> 5).astype(np.int64)
+        r = (offs & 31).astype(np.int64)
+        x = codes.astype(np.uint64) << (64 - r - lens).astype(np.uint64)
+        np.add.at(words, w, (x >> np.uint64(32)).astype(np.uint32))
+        np.add.at(words, w + 1, (x & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+        payload = words.view(np.uint32).byteswap().view(np.uint8)[: (total + 7) // 8]
+        self.write_bits_array(payload, total)
 
     def write_bits_array(self, data: np.ndarray, nbits: int) -> None:
         """Append ``nbits`` bits stored MSB-first in ``data`` (uint8)."""
@@ -107,7 +130,7 @@ def splice(parts: list[tuple[np.ndarray, int]]) -> tuple[np.ndarray, int]:
 
 
 class BitReader:
-    """Scalar MSB-first reader over a byte buffer (header parsing)."""
+    """Scalar MSB-first reader over a byte buffer (header parsing / oracle)."""
 
     def __init__(self, data, start_bit: int = 0) -> None:
         self.data = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)

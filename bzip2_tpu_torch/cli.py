@@ -16,8 +16,11 @@ default, encodes through the port's engine on the card (the registry's
 decodes on the card (``bzip2_tpu_torch.decompress``); ``--backend=native``
 encodes on the host alone (``engine_for(use_device=False)``) and decodes
 on the host (the block/member-parallel decoder for regular files of 1 MB
-and more, else the streaming one).  Any other backend exits 3, with no
-output file left.
+and more, else the streaming one); ``--backend=oracle`` encodes through
+the NumPy reference block encoder (the registry's "oracle" entry) and
+decodes every input with the pure-Python streaming decoder
+(``stream.Decompressor(backend="oracle")``), never touching the card.  Any
+other backend exits 3, with no output file left.
 """
 from __future__ import annotations
 
@@ -233,10 +236,10 @@ def _decompress_stream(fin, fout, quiet, force, backend=None):
         if fout is not None:
             fout.write(out)
         return True, True
-    if backend != "native":
+    if backend not in ("native", "oracle"):
         raise ValueError(f"unknown backend {backend!r}")
     # block/member-grain parallel decode for regular files (the host's -d
-    # path on real inputs; stdin and small files stream)
+    # path on real inputs; stdin, small files and the oracle stream)
     try:
         import stat as _stat
         st = os.fstat(fin.fileno())
@@ -245,7 +248,7 @@ def _decompress_stream(fin, fout, quiet, force, backend=None):
         # constant-memory streaming decoder (BZ2TPU_PARALLEL_MAX bytes,
         # compressed, to override).
         par_max = int(os.environ.get("BZ2TPU_PARALLEL_MAX", 1 << 28))
-        regular = (_stat.S_ISREG(st.st_mode)
+        regular = (backend == "native" and _stat.S_ISREG(st.st_mode)
                    and (1 << 20) <= st.st_size <= par_max)
     except (OSError, AttributeError, ValueError):
         regular = False
@@ -257,7 +260,7 @@ def _decompress_stream(fin, fout, quiet, force, backend=None):
             fout.write(out)
         return True, True
     members = 0
-    decomp = Decompressor()
+    decomp = Decompressor(backend)
     buffered = b""
     while True:
         chunk = buffered or fin.read(1 << 20)
@@ -281,7 +284,7 @@ def _decompress_stream(fin, fout, quiet, force, backend=None):
         if decomp.eof:
             members += 1
             tail = decomp.unused_data
-            decomp = Decompressor()
+            decomp = Decompressor(backend)
             if tail:
                 buffered = tail
             else:

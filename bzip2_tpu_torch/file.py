@@ -8,7 +8,8 @@ between members (BZ2_bzReadGetUnused) — and abandon semantics on close after
 an error.  Interface modeled on the stdlib ``bz2.BZ2File`` so it is a
 drop-in replacement.  Writes encode through ``backend``'s block encoder
 (default "gpu", the card); reads decode on the host
-(``stream.Decompressor``) whatever the backend.
+(``stream.Decompressor``): in pure Python for backend "oracle", else with
+the native incremental decoder.
 """
 from __future__ import annotations
 

@@ -14,8 +14,9 @@ bzlib.c:362-454 / 870-920) with the Python-idiomatic surface of
 * ``Compressor.flush()``: final block + EOS trailer (BZ_FINISH).
 * ``Decompressor.decompress(data)``: emits output per completed block; sets
   ``eof`` and ``unused_data`` at end of stream (the BZ2_bzReadGetUnused
-  contract, bzlib.c:1283-1300).  It decodes on the host
-  (``native.decode_some``) whatever the backend.
+  contract, bzlib.c:1283-1300).  It decodes on the host: through the
+  pure-Python oracle (``oracle.block.decode_block_body``) for backend
+  "oracle", else through ``native.decode_some``.
 """
 from __future__ import annotations
 
@@ -134,14 +135,15 @@ class Compressor:
 
 
 class Decompressor:
-    """Block-granular streaming decoder on the native incremental decoder
-    (``native.decode_some``).  ``backend`` is checked, not used: every
-    known backend ("gpu", "native", None or a registered name) reads on
-    the host."""
+    """Block-granular streaming decoder.  ``backend="oracle"`` decodes with
+    the pure-Python oracle; every other known backend ("gpu", "native",
+    None or a registered name) reads with the native incremental decoder
+    (``native.decode_some``) on the host."""
 
     def __init__(self, backend: str | None = None):
         if backend is not None and not _known_backend(backend):
             raise ValueError(f"unknown backend {backend!r}")
+        self._use_oracle = backend == "oracle"
         self.eof = False
         self.unused_data = b""
         #: bytes actually *consumed* by the decoder (bz_stream total_in
@@ -164,10 +166,18 @@ class Decompressor:
         if self.eof:
             self.unused_data += bytes(data)
             return b""
-        from . import native
         data = bytes(data)
         self._pushed += len(data)
         self._buf += data
+        if self._use_oracle:
+            out = self._decompress_oracle()
+            self.total_out += len(out)
+            if self.eof:
+                self.total_in = self._pushed - len(self.unused_data)
+            else:
+                self.total_in = min(self._pushed, (self._bitpos + 7) // 8)
+            return out
+        from . import native
         out, nbit, level, comb, status, rc = native.decode_some(
             bytes(self._buf), self._bitpos, self._level, self._combined)
         if rc == native.BZT_DATA_ERROR_MAGIC:
@@ -193,3 +203,47 @@ class Decompressor:
                 self._dropped += drop
                 self._bitpos -= drop * 8
         return out
+
+    def _decompress_oracle(self) -> bytes:
+        """Pure-Python incremental path (slow; backend "oracle")."""
+        from .bitstream import BitReader
+        from .oracle import block as _oblock
+
+        out = b""
+        r = BitReader(np.frombuffer(bytes(self._buf), np.uint8))
+        r.pos = self._bitpos
+        while True:
+            save = r.pos
+            try:
+                if self._level == 0:
+                    hb, hz, hh, hl = (r.read(8) for _ in range(4))
+                    if ((hb, hz, hh) != (C.HDR_B, C.HDR_Z, C.HDR_h)
+                            or not C.HDR_0 + 1 <= hl <= C.HDR_0 + 9):
+                        raise DataErrorMagic("bad stream header")
+                    self._level = hl - C.HDR_0
+                    self._bitpos = r.pos
+                    continue
+                magic = r.read(48)
+                if magic == C.EOS_MAGIC:
+                    stored = r.read(32)
+                    if stored != self._combined:
+                        raise DataError("combined CRC mismatch")
+                    self.eof = True
+                    self.unused_data = bytes(self._buf[(r.pos + 7) // 8:])
+                    self._buf.clear()
+                    return out
+                if magic != C.BLOCK_MAGIC:
+                    raise DataError("bad block magic")
+                stored_crc, raw = _oblock.decode_block_body(r, self._level)
+                if _crc.crc32(raw) != stored_crc:
+                    raise DataError("block CRC mismatch")
+                self._combined = ((((self._combined << 1)
+                                    | (self._combined >> 31)) & 0xFFFFFFFF)
+                                  ^ stored_crc)
+                out += raw.tobytes()
+                self._bitpos = r.pos
+            except EOFError:
+                r.pos = save
+                return out
+            except _oblock.DataError as e:
+                raise DataError(str(e)) from e

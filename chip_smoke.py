@@ -128,7 +128,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      block on the card; prints the rates, the BWT's doubling rounds, peak
      RSS, peak device memory and memory_reserved along the spew;
   11e. each tool of TOOLS once in a child process at a small size: exit 0;
-     prints the end of each one's output.
+     prints the end of each one's output;
+  12. the port's reference codec (backend "oracle", NumPy and pure Python
+     on the host) against the card: the first ORACLE_BYTES of the corpus at
+     -9 through api.compress(..., backend="oracle") and through the card
+     (hybrid, no host worker, every block on the card) both equal
+     bz2.compress; api.decompress(backend="oracle") decodes that card
+     stream and a card -1 stream of the bench corpus's first ORACLE_BYTES
+     exactly, the latter also through stream.Decompressor(backend="oracle")
+     in ORACLE_PIECE pieces; BZ2TFile and cli.main with backend "oracle"
+     write ORACLE_SURFACE bytes equal to bz2.compress and read them back
+     exactly.  Spies fail the phase on any call from these oracle steps to
+     the card engine, the card decoder's batches or the native decoders,
+     and no kernel may launch in them.  Prints each step's seconds and
+     MB/s.
 Phase 3 also holds the encode kernels at phase 11c's batches: at each
 of -1..-8 the first MATRIX_BYTES of the bench corpus are one batch, and
 sort_pairs at its padded width, mtf_tile_last, mtf_rank, group_hist and
@@ -200,6 +213,10 @@ CHASE_STEPS = (20_000, 220_000)   # the chase probe's two run lengths
 BENCH_BYTES = 85_000_000    # phase 11a: the bench at its own scale
 BENCH_ROUNDS = 3
 MATRIX_BYTES = 10 << 20     # phase 11c's level matrix and 11d's corpus
+ORACLE_BYTES = 1 << 20      # phase 12: the slices the reference codec takes
+ORACLE_PIECE = 64 << 10     # phase 12's stream.Decompressor pieces
+ORACLE_SURFACE = 256 << 10  # phase 12's BZ2TFile and CLI files
+ORACLE_DIR = os.path.join(HERE, "build", "oracle")    # phase 12's files
 #: phase 11e: each tool once in a child process, at a small size
 TOOLS = (
     ("mesh_bench", ["1", "--blocks", "4", "--decode-bytes", str(4 << 20)]),
@@ -879,17 +896,17 @@ def huffman_pass(torch, rng, bt, nt, ut, old=()) -> dict:
     return res
 
 
-def _timed_compress(torch, data, kw) -> tuple:
-    """One bzip2_tpu_torch.compress(data, 9, **kw) with the launch counts
-    and engine telemetry reset just before it; returns (stream, wall s,
-    launches, SHARE, STAGE_WALL)."""
+def _timed_compress(torch, data, kw, level: int = LEVEL) -> tuple:
+    """One bzip2_tpu_torch.compress(data, level, **kw) with the launch
+    counts and engine telemetry reset just before it; returns (stream, wall
+    s, launches, SHARE, STAGE_WALL)."""
     import bzip2_tpu_torch
     from bzip2_tpu_torch import _build, engine
     engine.reset_telemetry()
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
-    out = bzip2_tpu_torch.compress(data, LEVEL, **kw)
+    out = bzip2_tpu_torch.compress(data, level, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (out, wall, {k: v.launches for k, v in _build.KERNELS.items()},
@@ -2013,6 +2030,157 @@ def tools_phase(card: str) -> None:
             print(f"    {ln}", flush=True)
 
 
+def _card_stream(torch, data: bytes, level: int) -> bytes:
+    """``data`` through the card at ``level`` (hybrid, no host worker):
+    equal to bz2.compress, every block on the card and every encode kernel
+    launched."""
+    from bzip2_tpu_torch import engine
+    n = len(engine.split_blocks(data, level))
+    out, wall, launches, share, _ = _timed_compress(torch, data, HYBRID,
+                                                    level)
+    if out != bz2.compress(data, level):
+        raise AssertionError(f"12: the card's -{level} stream differs from "
+                             "bz2.compress")
+    if share != {"blocks": n, "dev_blocks": n, "host_blocks": 0,
+                 "declines": 0}:
+        raise AssertionError(f"12: the card's -{level} run: {share}, "
+                             f"{n} blocks")
+    missing = [k for k in ENCODE if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"12: -{level} kernels not launched: {missing}")
+    print(f"  card -{level}: {len(data)} bytes, {n} of {n} blocks on the "
+          f"card, equal to bz2.compress, {wall:.3f} s", flush=True)
+    return out
+
+
+def oracle_phase(torch, data: bytes, card: str) -> None:
+    """Phase 12: the port's reference codec (backend "oracle": NumPy and
+    pure Python on the host, sharing no code with the card path or the C++
+    decoders) against the card.  The first ORACLE_BYTES of the corpus at
+    -9 through the oracle and through the card must both equal
+    bz2.compress; the oracle decodes that card stream and a card -1 stream
+    of the bench corpus's first ORACLE_BYTES exactly (the latter also
+    through stream.Decompressor in ORACLE_PIECE pieces); BZ2TFile and
+    cli.main with backend "oracle" write and read ORACLE_SURFACE bytes,
+    equal to stock.  Spies fail the phase on any call from an oracle step
+    to the card engine, the card decoder's batches or the native decoders,
+    and no kernel may launch in those steps."""
+    import shutil
+
+    from bzip2_tpu_torch import _build, api, bench, cli, engine, native
+    from bzip2_tpu_torch import decoder as dmod
+    from bzip2_tpu_torch import stream
+    from bzip2_tpu_torch.file import BZ2TFile
+    t_phase = time.perf_counter()
+    d9 = data[:ORACLE_BYTES]
+    info: dict = {}
+    d1 = bench.make_corpus(ORACLE_BYTES, info=info)
+    blocks1 = engine.split_blocks(d1, 1)
+    wide = sum((b.raw_span[1] - b.raw_span[0]) > len(b.data) * 5 // 4
+               for b in blocks1)
+    print(f"phase 12: the reference codec (backend \"oracle\", on the host) "
+          f"against the card, on {card}; -9 on the corpus's first "
+          f"{len(d9)} bytes, -1 on the bench {bench.describe_corpus(d1, info)}"
+          f" ({len(blocks1)} blocks, {wide} expanding past 1.25x their RLE1 "
+          "length)", flush=True)
+    card9 = _card_stream(torch, d9, 9)
+    card1 = _card_stream(torch, d1, 1)
+
+    calls: dict = {}
+    saved = []
+
+    def spy(owner, name):
+        real = getattr(owner, name)
+        saved.append((owner, name, real))
+
+        def f(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **k)
+        setattr(owner, name, f)
+
+    for owner, name in ((engine.Engine, "encode_payloads"),
+                        (dmod, "launch_batch"), (native, "decompress"),
+                        (native, "decode_some")):
+        spy(owner, name)
+    def pieces(stream_bytes, want):
+        d = stream.Decompressor(backend="oracle")
+        out = b"".join(d.decompress(stream_bytes[i:i + ORACLE_PIECE])
+                       for i in range(0, len(stream_bytes), ORACLE_PIECE))
+        return (out == want and d.eof and d.unused_data == b""
+                and d.total_in == len(stream_bytes)
+                and d.total_out == len(want))
+
+    shutil.rmtree(ORACLE_DIR, ignore_errors=True)
+    os.makedirs(ORACLE_DIR)
+    fsrc = d9[:ORACLE_SURFACE]
+    csrc = d1[:ORACLE_SURFACE]
+    fpath = os.path.join(ORACLE_DIR, "file.bz2")
+    cpath = os.path.join(ORACLE_DIR, "cli.bin")
+    with open(cpath, "wb") as fh:
+        fh.write(csrc)
+
+    def file_write():
+        with BZ2TFile(fpath, "wb", compresslevel=9, backend="oracle") as f:
+            f.write(fsrc)
+        return _read(fpath) == bz2.compress(fsrc, 9)
+
+    def file_read():
+        with BZ2TFile(fpath, "rb", backend="oracle") as f:
+            return f.read() == fsrc
+
+    def cli_encode():
+        return (cli.main(["--backend=oracle", "-zkf", "-9", cpath]) == 0
+                and _read(cpath + ".bz2") == bz2.compress(csrc, 9))
+
+    def cli_decode():
+        os.unlink(cpath)
+        return (cli.main(["--backend=oracle", "-dkf", cpath + ".bz2"]) == 0
+                and _read(cpath) == csrc)
+
+    steps = (
+        ("oracle encode -9 (== the card's stream == bz2.compress)", len(d9),
+         lambda: api.compress(d9, 9, backend="oracle") == card9),
+        ("oracle decode of the card's -9 stream", len(d9),
+         lambda: api.decompress(card9, backend="oracle") == d9),
+        ("oracle decode of the card's -1 stream", len(d1),
+         lambda: api.decompress_with_tail(card1, backend="oracle")
+         == (d1, len(card1))),
+        (f"stream.Decompressor(backend=\"oracle\") of the card's -1 stream "
+         f"in {ORACLE_PIECE}-byte pieces", len(d1),
+         lambda: pieces(card1, d1)),
+        ("BZ2TFile(backend=\"oracle\") write -9 (== bz2.compress)",
+         len(fsrc), file_write),
+        ("BZ2TFile(backend=\"oracle\") read", len(fsrc), file_read),
+        ("cli.main --backend=oracle -zkf -9 (== bz2.compress)", len(csrc),
+         cli_encode),
+        ("cli.main --backend=oracle -dkf", len(csrc), cli_decode))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    try:
+        for name, nbytes, fn in steps:
+            t0 = time.perf_counter()
+            ok = fn()
+            wall = time.perf_counter() - t0
+            if not ok:
+                raise AssertionError(f"12 {name}: differs")
+            print(f"  {name}: {wall:.3f} s, {nbytes / 1e6 / wall:.3f} MB/s, "
+                  "exact", flush=True)
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+        shutil.rmtree(ORACLE_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _launch_counts().items() if v}
+    if calls or launched:
+        raise AssertionError(f"12: the oracle steps reached the card or the "
+                             f"native decoders: calls {calls}, launches "
+                             f"{launched}")
+    print(f"  spies: no call to Engine.encode_payloads, decoder.launch_batch,"
+          f" native.decompress or native.decode_some and no kernel launch "
+          f"in the {len(steps)} oracle steps; phase 12 took "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2276,6 +2444,9 @@ def main() -> int:
     level_phase(torch, card)
     scale_phase(torch, card)
     tools_phase(card)
+
+    # ---- phase 12: the reference codec against the card's streams
+    oracle_phase(torch, data, card)
 
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],

@@ -465,7 +465,7 @@ def test_ibwt_walk_kernel_matches_plain_level9(cuda_device, monkeypatch):
 
 
 def _degenerate_lasts():
-    from bzip2_tpu.oracle import bwt as obwt
+    from bzip2_tpu_torch.oracle import bwt as obwt
     rng = np.random.default_rng(21)
     blocks = [np.full(50_000, 7, np.uint8),                       # one symbol
               np.tile(np.frombuffer(b"ab", np.uint8), 25_000),    # period 2
@@ -614,6 +614,22 @@ def test_bz2compressor_round_trip_on_card(cuda_device):
     if engine.SHARE["dev_blocks"]:
         assert _build.KERNELS["sort_pairs"].launches > 0
     assert bzip2_tpu_torch.BZ2Decompressor().decompress(out) == data
+
+
+@pytest.mark.cuda
+def test_reference_codec_holds_card_stream(cuda_device):
+    """A 1 MiB slice at -9: the card's stream (every block on the card) is
+    decoded exactly by the port's pure-Python oracle, and the oracle's
+    stream of the same slice equals the card's."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import api, engine
+    data, expect = _level9(1 << 20)
+    engine.reset_telemetry()
+    card = bzip2_tpu_torch.compress(data, 9, host_workers=0)
+    n = len(engine.split_blocks(data, 9))
+    assert card == expect and engine.SHARE["dev_blocks"] == n == 2
+    assert api.decompress(card, backend="oracle") == data
+    assert api.compress(data, 9, backend="oracle") == card
 
 
 @pytest.mark.cuda

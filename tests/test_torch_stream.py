@@ -142,7 +142,7 @@ def test_decompressor_backends_read_on_host(backend, rng, monkeypatch):
 
 def test_decompressor_unknown_backend_raises():
     with pytest.raises(ValueError, match="backend"):
-        tstream.Decompressor(backend="oracle")
+        tstream.Decompressor(backend="bogus")
 
 
 def test_corrupt_stream_errors_match_reference(rng):
