@@ -15,8 +15,12 @@ arguments and outputs, and returns the same integers).
   last column.
 * **Inverse BWT** — the successor array from one stable sort, packed with
   the emitted byte and a segment-end flag; a two-wave splitter walk
-  (``ibwt_kernel.ibwt_walk``, the one hand-written kernel of the decoder);
-  segment ranks by pointer jumping; assembly by running max and one gather.
+  (``ibwt_kernel.ibwt_walk``); segment ranks by pointer jumping; assembly
+  by running max and one gather.
+
+The symbol scan, MTF^-1 and the walk are hand-written kernels
+(``symbol_kernel.symbol_scan``, ``mtf_inverse_kernel.mtf_inverse``,
+``ibwt_kernel.ibwt_walk``), each with its plain version beside it.
 
 Differences from the JAX formulation, with equal outputs:
 
@@ -28,7 +32,7 @@ Differences from the JAX formulation, with equal outputs:
   takes the largest value instead of whichever write lands last, so the
   result does not depend on the device's scatter order.
 * ``lax.scan``/``while_loop`` become Python loops of torch ops, except the
-  walk, which is one kernel launch.
+  symbol scan, the MTF^-1 scans and the walk, which are kernels.
 
 Shapes are exact per batch.  Corrupt input degrades to wrong bytes, never to
 an out-of-bounds access; the decoder (``bzip2_tpu_torch/decoder.py``)
@@ -43,13 +47,9 @@ from ..constants import MAX_ALPHA_SIZE as A
 
 from .huffman import assign_codes_lanes
 from .ibwt_kernel import ibwt_walk
-
-G_SIZE = 50
-LUT_BITS = 12
-#: 12-bit windows the >12-bit code region can span (see the JAX module)
-ESC_PREFIXES = 132
-MTF_CHUNKS = 512
-U32 = 0xFFFFFFFF
+from .mtf_inverse_kernel import mtf_inverse  # noqa: F401 (the wrapper)
+from .symbol_kernel import (ESC_PREFIXES, LUT_BITS, U32,  # noqa: F401
+                            _byte_windows, symbol_scan)
 
 i32, i64 = torch.int32, torch.int64
 
@@ -107,56 +107,16 @@ def build_tables(lens, alpha):
             lut2.reshape(B, 6, ESC_PREFIXES << 8), ebase.reshape(B, 6))
 
 
-# -------------------------------------------------------- symbol decode ---
-
-def _symbol_scan(wb8, goff, gsel, gvalid, lut1, lut2, esc_base, take_w):
-    """The 50-step symbol scan; ``take_w(wb8, wi)`` reads the 32-bit window
-    (int64) at byte index wi."""
-    B, G = goff.shape
-    dev = goff.device
-    lut1f = lut1.reshape(B, 6 << LUT_BITS)
-    lut2f = lut2.reshape(B, 6 * (ESC_PREFIXES << 8))
-    ebase = torch.zeros((B, G), dtype=i32, device=dev)
-    for t in range(6):
-        ebase = torch.where(gsel == t, esc_base[:, t][:, None], ebase)
-    w2 = ESC_PREFIXES << 8
-    off = goff.to(i32)
-    syms = []
-    for _ in range(G_SIZE):
-        w = (take_w(wb8, off >> 3) << (off & 7)) & U32
-        w12 = (w >> (32 - LUT_BITS)).to(i32)
-        e1 = torch.gather(lut1f, 1, ((gsel << LUT_BITS) + w12).to(i64))
-        loc2 = (w >> 12).to(i32) - (ebase << 8)
-        e2 = torch.gather(lut2f, 1, (gsel * w2 + loc2.clamp(0, w2 - 1)).to(i64))
-        entry = torch.where(e1 > 0, e1, e2)
-        off = off + torch.where(gvalid, entry & 31, 0)
-        syms.append(entry >> 5)
-    return torch.stack(syms, dim=2).reshape(B, G * G_SIZE)
-
-
-def _byte_windows(words):
-    """(..., WT) int64 words (uint32 values) -> (..., 4*WT) int64: entry i
-    is the 32-bit big-endian window starting at byte i."""
-    byts = torch.stack([words >> 24, (words >> 16) & 0xFF,
-                        (words >> 8) & 0xFF, words & 0xFF], dim=-1).reshape(
-        words.shape[:-1] + (4 * words.shape[-1],))
-    return ((byts << 24) | (byts.roll(-1, dims=-1) << 16)
-            | (byts.roll(-2, dims=-1) << 8) | byts.roll(-3, dims=-1))
-
+# ------------------------------------------------ symbol decode, MTF^-1 ---
 
 def decode_symbols(words, goff, gsel, gvalid, lut1, lut2, esc_base):
     """words: flat (WT,) int64 big-endian bit buffer (uint32 values) shared
     by the batch; goff (B, G) int32 absolute bit offsets into it; gsel
     (B, G) int32; gvalid (B, G) bool; tables from build_tables.  Returns
     syms (B, G*50) int32 in stream order (garbage in invalid lanes)."""
-    WT = words.shape[0]
-    wb8 = _byte_windows(words)
-
-    def take_flat(wb, wi):
-        return wb[wi.clamp(0, 4 * WT - 1).to(i64)]
-
-    return _symbol_scan(wb8, goff, gsel, gvalid, lut1, lut2, esc_base,
-                        take_flat)
+    if words.dim() != 1:
+        raise ValueError(f"decode_symbols: words {tuple(words.shape)}")
+    return symbol_scan(words, goff, gsel, gvalid, lut1, lut2, esc_base)
 
 
 def decode_symbols_rows(words, goff, gsel, gvalid, lut1, lut2, esc_base):
@@ -164,65 +124,9 @@ def decode_symbols_rows(words, goff, gsel, gvalid, lut1, lut2, esc_base):
     (uint32 values), one per block; goff (B, G) bit offsets local to each
     row.  Every array is batched on the block axis, so a mesh entry decodes
     its shard of rows with no shared flat buffer to rebase."""
-    WT = words.shape[1]
-    wb8 = _byte_windows(words)                             # (B, 4*WT)
-
-    def take_rows(wb, wi):
-        return torch.gather(wb, 1, wi.clamp(0, 4 * WT - 1).to(i64))
-
-    return _symbol_scan(wb8, goff, gsel, gvalid, lut1, lut2, esc_base,
-                        take_rows)
-
-
-# ---------------------------------------------------------------- MTF^-1 ---
-
-def mtf_inverse(syms, used_list, n_used, n_mtf, n_chunks: int = MTF_CHUNKS):
-    """syms (B, M) int32; used_list (B, 256) int32 initial MTF list (padded
-    0); n_used/n_mtf (B,) int32.  Returns vals (B, M) int32: the decoded
-    byte per symbol (for RUNA/RUNB, the byte the zero run repeats).
-
-    Chunked permutation-monoid form: a chunk's local scan gives each
-    symbol's index into the chunk-start list and the chunk's net
-    permutation; a sequential compose over the n_chunks summaries anchors
-    every chunk to the initial list.  Exact at any chunking."""
-    B, M = syms.shape
-    dev = syms.device
-    C = n_chunks
-    K = -(-M // C)
-    syms_p = torch.nn.functional.pad(syms.to(i32), (0, C * K - M),
-                                     value=10_000)   # no-op symbols
-    xs = syms_p.reshape(B, C, K)
-    # per symbol: r = its list index (RUNA/RUNB read the front, as the
-    # reference's where(s <= 1, lst[0], lst[r]) does, since r clamps to 0),
-    # and lim = r + 1 when it moves lst[r] to the front (0 otherwise), so a
-    # step is one gather, one shift and one masked select
-    r = (xs - 1).clamp(0, 255)
-    lim = torch.where((xs >= 2) & (xs <= n_used.to(i32)[:, None, None]),
-                      r + 1, 0)
-    r = r.to(i64)[..., None]
-    j256 = torch.arange(256, dtype=i32, device=dev)
-    lst = j256.expand(B, C, 256).contiguous()
-    es = []
-    for k in range(K):
-        v = torch.gather(lst, 2, r[:, :, k])                # (B, C, 1)
-        es.append(v)
-        shifted = torch.cat([v, lst[:, :, :-1]], dim=2)
-        lst = torch.where(j256 < lim[:, :, k, None], shifted, lst)
-    e = torch.cat(es, dim=2)                                # (B, C, K)
-
-    # exclusive compose over the chunk permutations: S_{c+1} = S_c[P_c]
-    P = lst.to(i64)
-    S = j256.expand(B, 256)
-    S_all = []
-    for c in range(C):
-        S_all.append(S)
-        S = torch.gather(S, 1, P[:, c])
-    S_all = torch.stack(S_all, dim=1)                       # (B, C, 256)
-    F = torch.gather(used_list.to(i32)[:, None, :].expand(B, C, 256), 2,
-                     S_all.to(i64))
-    g = (torch.arange(C, dtype=i32, device=dev)[None, :, None] * 256
-         + e.clamp(0, 255)).reshape(B, C * K)
-    return torch.gather(F.reshape(B, C * 256), 1, g.to(i64))[:, :M]
+    if words.dim() != 2:
+        raise ValueError(f"decode_symbols_rows: words {tuple(words.shape)}")
+    return symbol_scan(words, goff, gsel, gvalid, lut1, lut2, esc_base)
 
 
 # ------------------------------------------------- RLE2 + BWT last column ---

@@ -18,6 +18,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      histogram take the first -9 encode batch (13 blocks); the walk
      kernel's inputs are the first decode batch's two waves, recorded from
      one decode of the -9 stream through bzip2_tpu_torch.decompress.
+     The decoder's symbol-scan and MTF^-1 kernels are held at every input
+     the decodes of the -9 stream and of phase 11c's -1 stream give them,
+     through bzip2_tpu_torch.decompress (flat word buffer) and the
+     one-entry mesh (word rows), and MTF^-1 on synthetic rows at 1, 16
+     and 512 chunks; both are timed on the first -9 batch over several
+     CUDA-event samples, with torch.profiler's count of device launches
+     a call of kernel and plain, beside the byte bound (the symbol scan's
+     counts only the table entries a replay of that input reads) and the
+     chain bound (the longest dependent chain at the chase probe's step
+     costs).
      The Huffman-length kernel takes the 78 lanes of that batch's first
      refinement pass and a set of skewed lanes that halve and retry, and is
      timed beside the host heap of the hybrid path
@@ -27,7 +37,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      thread's dependent loads over a 3.6 MB table (a -9 row of the walk's
      tt) from L2 and from a 16-CTA cluster's distributed shared memory, in
      ns a step, and prints how many such clusters the card holds at once
-     (cudaOccupancyMaxActiveClusters).  The sort is timed beside
+     (cudaOccupancyMaxActiveClusters); it also times a 16 KiB chase from
+     L1, a warp's dependent shuffles and a CTA's shared gathers between
+     barriers, the step costs of the symbol scan's and MTF^-1's chain
+     bounds.  The sort is timed beside
      torch.sort of its packed key at every shape, mtf_tile_last beside one
      scatter_reduce_ "amax" and group_hist beside one torch.bincount.  With
      --old-mtf, --old-huffman or --old-walk (the last two may be given
@@ -46,9 +59,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. decode that -9 stream through bzip2_tpu_torch.decompress_with_tail
      (one warm-up, then the timed run): the bytes and the consumed length
      must be exact, every block decoded on the device, no block healed on
-     the host, the walk kernel launched; then a -1 stream of a 2 MB
-     prefix and a two-member stream with trailing garbage, and one more -9
-     decode under torch.profiler; a spy on native.decompress, the host's
+     the host, every decode kernel launched (the symbol scan, MTF^-1 and
+     the walk); then a -1 stream of a 2 MB prefix and a two-member stream
+     with trailing garbage, and one more -9 decode under torch.profiler; a spy on native.decompress, the host's
      whole-stream decoder, must see no call from any of these decodes;
   6b. the port's native batch decoder, native.decode_some, on the whole -9
      stream in a child process (a crash fails the run with its signal):
@@ -74,7 +87,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      "gpu": bit-exact, every block on the card, every encode kernel
      launched, the blocks each encode_payloads call carried printed; the
      CLI's card decode (-d -c and -t in child processes, -dkf in process:
-     exact, every block on the card, the walk kernel launched); the host
+     exact, every block on the card, every decode kernel launched); the host
      decode (--backend=native -d -c, a child); BZ2File write and read on
      the defaults (device/host split printed); recover on a copy with a
      byte flipped in block 5 (18 valid rec*.bz2, each read by
@@ -89,7 +102,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      have been launched; prints the walls, the blocks on each entry, the
      launches and the peak device memory;
   10b. decode_blocks_sharded of the -9 stream on the same two meshes, the
-     same way: exact, no host heal (mesh.HEALS), the walk kernel launched;
+     same way: exact, no host heal (mesh.HEALS), every decode kernel
+     launched;
      prints the walls and mesh.STAGE_WALL; profiles one more encode and
      decode on make_mesh() (device busy share, top device ops, each hand
      kernel's device time); then a two-member stream (exact) and a flipped
@@ -107,9 +121,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      its corpus, -9, BENCH_ROUNDS timed rounds (the default engine, the
      card decoder and native.decompress; stock bz2 timed once): every
      round's stream equal to bz2.compress and both decodes exact, no block
-     of the card decode healed on the host; every encode kernel and the
-     walk launched in the timed rounds; prints each round, the medians and
-     best, the encode split, the stage walls and the launches;
+     of the card decode healed on the host; every encode and decode
+     kernel launched in the timed rounds; prints each round, the medians
+     and best, the encode split, the stage walls and the launches;
   11b. python -m bzip2_tpu_torch.bench in a child at 16 MiB and one
      round: exit 0, and a last line of one JSON object with the keys
      metric, value, unit and vs_baseline, bit-exact=True in its metric;
@@ -133,8 +147,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      on the host) against the card: the first ORACLE_BYTES of the corpus at
      -9 through api.compress(..., backend="oracle") and through the card
      (hybrid, no host worker, every block on the card) both equal
-     bz2.compress; api.decompress(backend="oracle") decodes that card
-     stream and a card -1 stream of the bench corpus's first ORACLE_BYTES
+     bz2.compress; the card decoder decodes both card streams (exact, no
+     heal, every decode kernel launched); api.decompress(backend="oracle")
+     decodes that card stream and a card -1 stream of the bench corpus's first ORACLE_BYTES
      exactly, the latter also through stream.Decompressor(backend="oracle")
      in ORACLE_PIECE pieces; BZ2TFile and cli.main with backend "oracle"
      write ORACLE_SURFACE bytes equal to bz2.compress and read them back
@@ -176,6 +191,10 @@ REPLACES = {
                  "no Pallas original)",
     "huffman_lengths": "bzip2_tpu/ops/huffman.py:136 make_code_lengths_lanes "
                        "(jax.vmap of lax loops; no Pallas original)",
+    "symbol_scan": "bzip2_tpu/ops/decode.py:124 _symbol_scan (lax.scan of 50 "
+                   "steps at :150; no Pallas original)",
+    "mtf_inverse": "bzip2_tpu/ops/decode.py:214 mtf_inverse (lax.scans at "
+                   ":259 and :267; no Pallas original)",
 }
 SOURCES = {
     "sort_pairs": "bzip2_tpu_torch/csrc/sort_pairs.cu",
@@ -184,6 +203,8 @@ SOURCES = {
     "group_hist": "bzip2_tpu_torch/csrc/group_hist.cu",
     "ibwt_walk": "bzip2_tpu_torch/csrc/ibwt_walk.cu",
     "huffman_lengths": "bzip2_tpu_torch/csrc/huffman_lengths.cu",
+    "symbol_scan": "bzip2_tpu_torch/csrc/symbol_scan.cu",
+    "mtf_inverse": "bzip2_tpu_torch/csrc/mtf_inverse.cu",
 }
 # the CUDA kernels each wrapper launches, as the profiler names them
 SYMBOLS = {
@@ -193,10 +214,13 @@ SYMBOLS = {
     "group_hist": ("group_hist_kernel",),
     "ibwt_walk": ("ibwt_walk_kernel", "ibwt_tail_kernel"),
     "huffman_lengths": ("huffman_lengths_kernel",),
+    "symbol_scan": ("symbol_scan_kernel",),
+    "mtf_inverse": ("mtf_local_kernel", "mtf_compose_kernel",
+                    "mtf_anchor_kernel"),
 }
 ENCODE = ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist")
 FUSED = ENCODE + ("huffman_lengths",)
-DECODE = ("ibwt_walk",)
+DECODE = ("symbol_scan", "mtf_inverse", "ibwt_walk")
 #: the hybrid slice of phases 4 and 5: one device worker, every block on
 #: the device (the engine's defaults add a second worker and a host one)
 HYBRID = {"pipeline": 1, "host_workers": 0}
@@ -230,10 +254,12 @@ TOOLS = (
 )
 
 #: the chase probe: one thread follows a single-cycle permutation for
-#: ``steps`` dependent loads, read from global memory (L2), as ibwt_walk.cu
-#: reads tt, or from the distributed shared memory of a cluster that staged
-#: it (a row sliced over up to 16 CTAs), the design the walk was measured
-#: against
+#: ``steps`` dependent loads, read from global memory (L2, or L1 for a
+#: 16 KiB table, the size of one of the symbol scan's lut1 tables), as
+#: ibwt_walk.cu reads tt, or from the distributed shared memory of a
+#: cluster that staged it (a row sliced over up to 16 CTAs), the design the
+#: walk was measured against; and the MTF^-1 kernel's two chains, a warp's
+#: dependent shuffles and a CTA's shared gathers between barriers
 CHASE_PROBE = r"""
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -280,6 +306,41 @@ chase_cluster(const int* __restrict__ next, int n, int slice,
 extern "C" int probe_chase_global(const int* next, int steps, int start,
                                   int* out, void* stream) {
   chase_global<<<1, 1, 0, (cudaStream_t)stream>>>(next, steps, start, out);
+  return (int)cudaGetLastError();
+}
+
+// one warp: each step a shuffle whose source lane is the value it read,
+// as the MTF^-1 local scan's list read depends on the list before it
+__global__ void chain_shfl(int steps, int* out) {
+  int x = threadIdx.x;
+  for (int s = 0; s < steps; ++s) x = __shfl_sync(0xffffffffu, x, x + 1);
+  out[threadIdx.x] = x;
+}
+
+// one CTA of 256 threads: each step a shared-memory gather through a
+// fixed permutation and a barrier, the MTF^-1 compose's step
+__global__ void __launch_bounds__(kThreads) chain_barrier(int steps,
+                                                          int* out) {
+  __shared__ int S[2][kThreads];
+  const int j = threadIdx.x, p = (j * 97 + 13) & (kThreads - 1);
+  int s = j;
+  S[0][j] = j;
+  __syncthreads();
+  for (int c = 0; c < steps; ++c) {
+    s = S[c & 1][p];
+    S[(c + 1) & 1][j] = s;
+    __syncthreads();
+  }
+  out[j] = s;
+}
+
+extern "C" int probe_chain_shfl(int steps, int* out, void* stream) {
+  chain_shfl<<<1, 32, 0, (cudaStream_t)stream>>>(steps, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_chain_barrier(int steps, int* out, void* stream) {
+  chain_barrier<<<1, kThreads, 0, (cudaStream_t)stream>>>(steps, out);
   return (int)cudaGetLastError();
 }
 
@@ -1142,11 +1203,13 @@ def in_turns(torch, old, new, reps: int, prep=None) -> tuple:
 
 
 def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
-    """Phase 3: ns a dependent load for one thread chasing a random
-    single-cycle permutation of n int32 entries (a -9 row of tt) from L2
-    and from a cluster's distributed shared memory, and of 8 n entries (a
-    batch's tt) from L2: the difference of two runs of CHASE_STEPS steps
-    over the step difference."""
+    """Phase 3: ns a dependent step, the difference of two runs of
+    CHASE_STEPS steps over the step difference, each run's result checked:
+    one thread chasing a random single-cycle permutation of n int32
+    entries (a -9 row of tt) from L2 and from a cluster's distributed
+    shared memory, of 8 n entries (a batch's tt) from L2 and of 4,096 (a
+    lut1 table) from L1; a warp's dependent shuffles ("shfl") and a CTA's
+    shared gathers between barriers ("barrier")."""
     import ctypes as ct
 
     from bzip2_tpu_torch import _build
@@ -1157,35 +1220,54 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
         nxt[order] = np.roll(order, -1)
         return order, torch.from_numpy(nxt).cuda()
 
-    row, batch = cycle(n), cycle(8 * n)
-    out = torch.empty(1, dtype=torch.int32, device=row[1].device)
+    out = torch.empty(256, dtype=torch.int32, device="cuda")
     stream = _build.stream_of(out)
     lib.probe_chase_global.argtypes = [ct.c_void_p, ct.c_int, ct.c_int,
                                        ct.c_void_p, ct.c_void_p]
     lib.probe_chase_cluster.argtypes = [ct.c_void_p, ct.c_int, ct.c_int,
                                         ct.c_int, ct.c_void_p, ct.c_void_p]
+    lib.probe_chain_shfl.argtypes = [ct.c_int, ct.c_void_p, ct.c_void_p]
+    lib.probe_chain_barrier.argtypes = [ct.c_int, ct.c_void_p, ct.c_void_p]
 
-    def cluster(table, k, start, o, st):
-        return lib.probe_chase_cluster(table, n, k, start, o, st)
-
-    ns = {}
-    for name, (order, table), fn in [("L2", row, lib.probe_chase_global),
-                                     ("DSMEM", row, cluster),
-                                     ("L2, 8 rows", batch,
-                                      lib.probe_chase_global)]:
+    def chase(fn, size, cluster=False):
+        """(run(k), the result run(k) must leave in out) of a chase."""
+        order, table = cycle(size)
         int(table.sum())            # the table into L2
+        extra = (size,) if cluster else ()
+        return (lambda k: fn(table.data_ptr(), *extra, k, int(order[0]),
+                             out.data_ptr(), stream),
+                lambda k: [int(order[k % size])])
 
-        def run(k):
-            return fn(table.data_ptr(), k, int(order[0]), out.data_ptr(),
-                      stream)
+    def replay(step, x):
+        def want(k):
+            y = x
+            for _ in range(k):
+                y = step(y)
+            return y.tolist()
+        return want
 
+    perm = (np.arange(256) * 97 + 13) & 255
+    cases = {
+        "L2": chase(lib.probe_chase_global, n),
+        "DSMEM": chase(lib.probe_chase_cluster, n, cluster=True),
+        "L2, 8 rows": chase(lib.probe_chase_global, 8 * n),
+        "L1": chase(lib.probe_chase_global, 4096),
+        "shfl": (lambda k: lib.probe_chain_shfl(k, out.data_ptr(), stream),
+                 replay(lambda y: y[(y + 1) & 31], np.arange(32))),
+        "barrier": (lambda k: lib.probe_chain_barrier(k, out.data_ptr(),
+                                                      stream),
+                    replay(lambda y: y[perm], np.arange(256)))}
+    ns = {}
+    for name, (run, want) in cases.items():
         ms = []
         for k in CHASE_STEPS:
             if run(k):
                 raise AssertionError(f"chase probe {name} did not launch")
             torch.cuda.synchronize()
-            if int(out.item()) != int(order[k % order.size]):
-                raise AssertionError(f"chase probe {name} ended off the cycle")
+            exp = want(k)
+            if out[:len(exp)].tolist() != exp:
+                raise AssertionError(f"chase probe {name} ended off its "
+                                     "cycle")
             ms.append(cuda_ms(torch, lambda: run(k), 3))
         ns[name] = (ms[1] - ms[0]) * 1e6 / (CHASE_STEPS[1] - CHASE_STEPS[0])
     occ = (ct.c_int * 3)()
@@ -1198,6 +1280,10 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
           f"tt) from L2 {ns['L2, 8 rows']:.1f} ns a step; clusters of "
           f"{occ[0]} CTAs with {occ[1]} B each: "
           f"cudaOccupancyMaxActiveClusters {occ[2]}", flush=True)
+    print(f"  chase probe over 16384 B (a lut1 table) from L1 "
+          f"{ns['L1']:.1f} ns a step; a warp's dependent shuffle "
+          f"{ns['shfl']:.1f} ns; a 256-thread CTA's shared gather and "
+          f"barrier {ns['barrier']:.1f} ns", flush=True)
     return ns
 
 
@@ -1282,6 +1368,184 @@ def old_walk_pass(torch, lib, path, waves) -> None:
                   f"{fill}, {how}: old {t[0]:.4f}, new {t[1]:.4f}, new "
                   f"{t[2]:.4f}, old {t[3]:.4f} ms; new {speedup:.2f}x "
                   "faster, outputs equal", flush=True)
+
+
+#: ops.decode's functions whose inputs phase 3 records from real decodes
+DECODE_INPUTS = ("decode_symbols", "decode_symbols_rows", "mtf_inverse")
+
+
+def record_decode_inputs(fn) -> dict:
+    """Run fn with ops.decode's symbol decodes and MTF^-1 wrapped to record
+    (clones of) their inputs; returns {name: [args, ...]}."""
+    from bzip2_tpu_torch.ops import decode as dec_ops
+    rec = {k: [] for k in DECODE_INPUTS}
+    real = {k: getattr(dec_ops, k) for k in DECODE_INPUTS}
+
+    def wrap(k):
+        def f(*a):
+            rec[k].append(tuple(x.clone() for x in a))
+            return real[k](*a)
+        return f
+
+    for k in DECODE_INPUTS:
+        setattr(dec_ops, k, wrap(k))
+    try:
+        fn()
+    finally:
+        for k in DECODE_INPUTS:
+            setattr(dec_ops, k, real[k])
+    return rec
+
+
+def device_launches(torch, fn) -> int:
+    """Device kernels, copies and fills that one call of fn runs, counted
+    by torch.profiler."""
+    _, _, by_name = profiled(torch, fn)
+    return sum(n for _, n in by_name.values())
+
+
+def _timed_pair(torch, name, kern, plain, args, work, chain) -> dict:
+    """Kernel and plain on one recorded input: medians (and spread) of 5
+    and 3 CUDA-event samples, device launches a call by torch.profiler,
+    the bound from work(args, out) = (bytes, operations) and, beside it,
+    chain = (what the longest dependent chain is, its time in ms at the
+    chase probe's measured step costs)."""
+    out = exact(torch, name, kern, plain, args)[0]
+    ks = [cuda_ms(torch, lambda: kern(*args), 10) for _ in range(5)]
+    ps = [cuda_ms(torch, lambda: plain(*args), 1) for _ in range(3)]
+    kn = device_launches(torch, lambda: kern(*args))
+    pn = device_launches(torch, lambda: plain(*args))
+    b = bound(*work(args, out))
+    ms, plain_ms = float(np.median(ks)), float(np.median(ps))
+    print(f"  {name} {'x'.join(map(str, out.shape))}: kernel {ms:.4f} ms "
+          f"(5 samples {min(ks):.4f}-{max(ks):.4f}), plain {plain_ms:.3f} ms "
+          f"(3 samples {min(ps):.3f}-{max(ps):.3f}), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), chain bound "
+          f"{chain[1]:.4f} ms ({chain[0]}); device "
+          f"launches a call: kernel {kn}, plain {pn}; max_abs_err 0",
+          flush=True)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
+def scan_reads(torch, args, out) -> tuple:
+    """The symbol scan on args replayed in torch ops, with the plain
+    version's windows, to count what this input makes it read: the
+    distinct lut1 entries, the distinct lut2 entries its escapes read, and
+    the longest lane's dependent loads (a window and a lut1 entry each
+    step, and a lut2 entry each escape).  The replay's symbols must equal
+    the kernel's output."""
+    from bzip2_tpu_torch.ops import symbol_kernel as sym_k
+    words, goff, gsel, gvalid, lut1, lut2, esc_base = args
+    B, G = goff.shape
+    last = 4 * words.shape[-1] - 1
+    wb8 = sym_k._byte_windows(words)
+    rows = torch.arange(B, device=goff.device)[:, None]
+    table = rows * 6 + gsel.clamp(0, 5).long()
+    eb = esc_base.long()[rows, gsel.clamp(0, 5).long()]
+    w2 = sym_k.ESC_PREFIXES << 8
+    l1, l2 = lut1.reshape(-1), lut2.reshape(-1)
+    off, esc = goff.clone(), torch.zeros_like(goff)
+    k1s, k2s, syms = [], [], []
+    for _ in range(sym_k.G_SIZE):
+        bi = (off >> 3).clamp(0, last).long()
+        win = wb8[rows, bi] if words.dim() == 2 else wb8[bi]
+        w = (win << (off & 7).long()) & sym_k.U32
+        k1 = (table << sym_k.LUT_BITS) + (w >> (32 - sym_k.LUT_BITS))
+        k2 = table * w2 + ((w >> 12) - (eb << 8)).clamp(0, w2 - 1)
+        e1 = l1[k1]
+        escape = e1 <= 0
+        k1s.append(k1.reshape(-1))
+        k2s.append(k2[escape])
+        esc += escape
+        entry = torch.where(escape, l2[k2], e1)
+        off = off + torch.where(gvalid, entry & 31, 0)
+        syms.append(entry >> 5)
+    if not torch.equal(torch.stack(syms, 2).reshape(out.shape), out):
+        raise AssertionError("the symbol scan's replay differs from it")
+    return (torch.unique(torch.cat(k1s)).numel(),
+            torch.unique(torch.cat(k2s)).numel(),
+            2 * sym_k.G_SIZE + int(esc.max()))
+
+
+def decode_kernels_pass(torch, rng, recs: dict, ns: dict) -> dict:
+    """Phase 3 for the decoder's symbol scan and MTF^-1 kernels: each held
+    exactly against its plain version on every input recorded from the
+    decodes in ``recs`` (label -> record_decode_inputs), flat and row
+    addressing, and MTF^-1 on synthetic rows at 1, 16 and 512 chunks;
+    then both timed on the first recorded -9 batch, beside their byte
+    bounds and their chain bounds at the step costs ``ns`` of chase_pass.
+    Returns the kernels line's entries."""
+    from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
+    from bzip2_tpu_torch.ops import symbol_kernel as sym_k
+    from torch_decode_cases import mtf_rows
+    for label, rec in recs.items():
+        shapes = []
+        for k in ("decode_symbols", "decode_symbols_rows"):
+            for args in rec[k]:
+                exact(torch, "symbol_scan", sym_k.symbol_scan,
+                      sym_k.symbol_scan_plain, args)
+                shapes.append(f"{'x'.join(map(str, args[1].shape))} "
+                              f"{'rows' if args[0].dim() == 2 else 'flat'}")
+        for args in rec["mtf_inverse"]:
+            exact(torch, "mtf_inverse", mik.mtf_inverse,
+                  mik.mtf_inverse_plain, args)
+        print(f"  {label}: symbol_scan exact vs plain on groups (B x G) "
+              f"{', '.join(shapes)}; mtf_inverse exact at every position of "
+              f"its {len(rec['mtf_inverse'])} batches (B x M) " + ", ".join(
+                  "x".join(map(str, a[0].shape)) for a in rec["mtf_inverse"]),
+              flush=True)
+    dev = torch.device("cuda")
+    for M, C in ((3050, 1), (3050, 16), (3050, 512), (50, 512),
+                 (200_000, 512)):
+        args = tuple(torch.from_numpy(a).to(dev)
+                     for a in mtf_rows(rng, M, -(-M // C)))
+        exact(torch, "mtf_inverse", lambda *a: mik.mtf_inverse(*a, C),
+              lambda *a: mik.mtf_inverse_plain(*a, C), args)
+    print("  mtf_inverse exact vs plain on 8 synthetic rows (n_used 1..256, "
+          "runs, EOB, the list's top, garbage) at M x chunks 3050x1, "
+          "3050x16, 3050x512, 50x512, 200000x512", flush=True)
+
+    first = next(iter(recs.values()))
+    sargs, margs = first["decode_symbols"][0], first["mtf_inverse"][0]
+
+    n1, n2, loads = scan_reads(torch, sargs, sym_k.symbol_scan(*sargs))
+
+    def sym_work(args, out):
+        # the words, the per-group inputs and esc_base read once, syms
+        # written once, and each table entry the scan reads read once; the
+        # plain version's 12 int32 operations a symbol
+        return (tensor_bytes(args[0], *args[1:4], args[6], out)
+                + 4 * (n1 + n2), 12 * out.numel())
+
+    def mtf_work(args, out):
+        # syms, used_list and n_used read, vals written; a symbol that
+        # moves its entry to the front moves r + 1 list entries (1 when it
+        # does not), and the compose gathers 256 entries a chunk
+        s, _, nu, _ = args
+        r = (s - 1).clamp(0, 255)
+        moved = (s >= 2) & (s <= nu[:, None])
+        ops = int(torch.where(moved, r + 1, 1).sum()) + \
+            s.shape[0] * mik.MTF_CHUNKS * 256
+        return tensor_bytes(*args[:3], out), ops
+
+    B, M = margs[0].shape
+    K = -(-M // mik.MTF_CHUNKS)
+    return {
+        "symbol_scan": _timed_pair(
+            torch, "symbol_scan", sym_k.symbol_scan, sym_k.symbol_scan_plain,
+            sargs, sym_work, (
+                f"the longest lane's {loads} dependent loads (a window and a "
+                f"lut1 entry a step, a lut2 entry an escape) at "
+                f"{ns['L1']:.1f} ns, the L1 chase; reads {n1} lut1 and {n2} "
+                "lut2 entries", loads * ns["L1"] * 1e-6)),
+        "mtf_inverse": _timed_pair(
+            torch, "mtf_inverse", mik.mtf_inverse, mik.mtf_inverse_plain,
+            margs, mtf_work, (
+                f"{K} local steps at {ns['shfl']:.1f} ns, a dependent "
+                f"shuffle, + {mik.MTF_CHUNKS} compose steps at "
+                f"{ns['barrier']:.1f} ns, a shared gather and a barrier",
+                (K * ns["shfl"] + mik.MTF_CHUNKS * ns["barrier"]) * 1e-6))}
 
 
 def _child_gate(name: str, mode: str, stream: bytes) -> tuple:
@@ -2053,12 +2317,45 @@ def _card_stream(torch, data: bytes, level: int) -> bytes:
     return out
 
 
+def _card_decode(torch, stream: bytes, want: bytes, level: int) -> None:
+    """``stream`` through the card decoder: exact, no block healed on the
+    host, every decode kernel launched."""
+    import bzip2_tpu_torch
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch import decoder as dmod
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    dmod.reset_telemetry()
+    t0 = time.perf_counter()
+    out = bzip2_tpu_torch.decompress(stream)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    if out != want:
+        raise AssertionError(f"12: the card's decode of its -{level} stream "
+                             "differs")
+    sh = dict(dmod.SHARE)
+    if dmod.ANOMALIES["lane"] or sh["dev_blocks"] != sh["blocks"]:
+        raise AssertionError(f"12: -{level} card decode healed "
+                             f"{dmod.ANOMALIES}, {sh}")
+    missing = [k for k in DECODE if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"12: -{level} decode kernels not launched: "
+                             f"{missing}")
+    print(f"  card decode of the card's -{level} stream: exact, "
+          f"{sh['dev_blocks']} of {sh['blocks']} blocks on the card, no heal, "
+          f"{wall:.3f} s; launches " + json.dumps(
+              {k: launches[k] for k in DECODE}), flush=True)
+
+
 def oracle_phase(torch, data: bytes, card: str) -> None:
     """Phase 12: the port's reference codec (backend "oracle": NumPy and
     pure Python on the host, sharing no code with the card path or the C++
     decoders) against the card.  The first ORACLE_BYTES of the corpus at
     -9 through the oracle and through the card must both equal
-    bz2.compress; the oracle decodes that card stream and a card -1 stream
+    bz2.compress; the card decoder decodes both card streams below
+    (exact, no heal, every decode kernel launched); the oracle decodes
+    that card stream and a card -1 stream
     of the bench corpus's first ORACLE_BYTES exactly (the latter also
     through stream.Decompressor in ORACLE_PIECE pieces); BZ2TFile and
     cli.main with backend "oracle" write and read ORACLE_SURFACE bytes,
@@ -2085,6 +2382,8 @@ def oracle_phase(torch, data: bytes, card: str) -> None:
           "length)", flush=True)
     card9 = _card_stream(torch, d9, 9)
     card1 = _card_stream(torch, d1, 1)
+    _card_decode(torch, card9, d9, 9)
+    _card_decode(torch, card1, d1, 1)
 
     calls: dict = {}
     saved = []
@@ -2195,6 +2494,7 @@ def main() -> int:
                     "against and time beside the current kernel (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))   # torch_decode_cases
     # ---- phase 1: toolchain and card
     import torch
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -2352,10 +2652,18 @@ def main() -> int:
             waves.append((tt, cur0, cap))
         return real_walk(tt, cur0, cap)
 
+    def decode_exact(fn, stream, want, name):
+        def run():
+            if fn(stream) != want:
+                raise AssertionError(f"{name} differs from its input")
+        return record_decode_inputs(run)
+
+    # the decoder's symbol and MTF^-1 inputs are recorded on the same decode
     dec_ops.ibwt_walk = record
     try:
-        if bzip2_tpu_torch.decompress(expect) != data:
-            raise AssertionError("decode of the -9 stream differs from data")
+        recs = {"-9 decoder batches": decode_exact(
+            bzip2_tpu_torch.decompress, expect, data, "decode of the -9 "
+            "stream")}
     finally:
         dec_ops.ibwt_walk = real_walk
 
@@ -2368,7 +2676,7 @@ def main() -> int:
                     f" cap {cap}", ik.ibwt_walk, ik.ibwt_walk_plain,
                     (tt, c, cap), reps=3, work=walk_work)
             for i, (tt, c, cap) in enumerate(waves)]
-    chase_pass(torch, probe_lib(probes["chase"]), rng)
+    ns = chase_pass(torch, probe_lib(probes["chase"]), rng)
     for i, path in enumerate(args.old_walk):
         old_walk_pass(torch, probe_lib(probes[f"walk{i}"]), path, waves)
     # one batch's walk: both waves
@@ -2383,8 +2691,9 @@ def main() -> int:
     waves.clear()
     dec_ops.ibwt_walk = record
     try:
-        if M.decode_blocks_sharded(M.make_mesh(), expect) != data:
-            raise AssertionError("mesh decode of the -9 stream differs")
+        recs["-9 one-entry mesh"] = decode_exact(
+            lambda st: M.decode_blocks_sharded(M.make_mesh(), st), expect,
+            data, "mesh decode of the -9 stream")
     finally:
         dec_ops.ibwt_walk = real_walk
     torch.cuda.synchronize()
@@ -2395,6 +2704,18 @@ def main() -> int:
               f"cap {cap} over {'x'.join(map(str, tt.shape))}: exact vs "
               "plain", flush=True)
     del waves, walk
+    # the symbol scan and MTF^-1 at the -9 batches above and at the -1
+    # batches of phase 11c's corpus, through the decoder and the mesh
+    from bzip2_tpu_torch import bench
+    d1 = bench.make_corpus(MATRIX_BYTES)
+    s1 = bz2.compress(d1, 1)
+    recs["-1 decoder batches (11c's corpus)"] = decode_exact(
+        bzip2_tpu_torch.decompress, s1, d1, "decode of the -1 stream")
+    recs["-1 one-entry mesh"] = decode_exact(
+        lambda st: M.decode_blocks_sharded(M.make_mesh(), st), s1, d1,
+        "mesh decode of the -1 stream")
+    results.update(decode_kernels_pass(torch, rng, recs, ns))
+    del recs, d1, s1
 
     # ---- phase 4: the slice through the port's entry point
     # one untimed pass pays the first-use costs at the batch shapes

@@ -249,3 +249,21 @@ def test_recover_nothing_and_usage(tmp_path):
     assert rc == 2
     assert _run(PORT, "recover", [])[0] == _run(REF, "recover", [])[0] == 1
     shutil.rmtree(tmp_path / REF)
+
+
+@pytest.mark.parametrize("script,module", [
+    ("bz2t-torch", "bzip2_tpu_torch.cli"),
+    ("bz2t-torch-recover", "bzip2_tpu_torch.recover")])
+def test_console_scripts_name_the_port(script, module):
+    """pyproject.toml installs the port's CLI and recover beside the
+    reference's: each entry resolves to the port's ``main``."""
+    import importlib
+    import tomllib
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    mod, _, attr = scripts[script].partition(":")
+    assert mod == module
+    assert getattr(importlib.import_module(mod), attr) is \
+        importlib.import_module(module).main
+    assert scripts["bz2t"] == "bzip2_tpu.cli:main"
+    assert scripts["bz2t-recover"] == "bzip2_tpu.recover:main"

@@ -17,8 +17,11 @@ from bzip2_tpu_torch import decoder as dmod
 from bzip2_tpu_torch.ops import decode as TD
 from bzip2_tpu_torch.ops import huffman as hk
 from bzip2_tpu_torch.ops import ibwt_kernel as ik
+from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
 from bzip2_tpu_torch.ops import mtf_kernel as mk
 from bzip2_tpu_torch.ops import sort_kernel as sk
+from bzip2_tpu_torch.ops import symbol_kernel as sym_k
+from torch_decode_cases import mtf_rows, parsed, wrap_case
 
 INF = 0x7FFFFFFF
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -85,7 +88,8 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
 def test_kernels_registered_with_counters():
     assert set(_build.KERNELS) == {"sort_pairs", "mtf_tile_last", "mtf_rank",
                                    "group_hist", "ibwt_walk",
-                                   "huffman_lengths"}
+                                   "huffman_lengths", "symbol_scan",
+                                   "mtf_inverse"}
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())
 
@@ -548,6 +552,85 @@ def test_ibwt_walk_kernel_matches_plain_level1(cuda_device, monkeypatch):
     _assert_walks_match(waves)
 
 
+def _spy_args(monkeypatch, module, name):
+    """Record the arguments of every call of ``module.name``."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _assert_symbols_match(args):
+    before = sym_k.SCAN.launches
+    got = sym_k.symbol_scan(*args)
+    assert sym_k.SCAN.launches == before + 1
+    exp = sym_k.symbol_scan_plain(*args)
+    assert got.dtype == exp.dtype == torch.int32 and torch.equal(got, exp)
+
+
+def _assert_mtf_match(args, n_chunks=mik.MTF_CHUNKS):
+    before = mik.KERNEL.launches
+    got = mik.mtf_inverse(*args, n_chunks=n_chunks)
+    assert mik.KERNEL.launches == before + 1
+    exp = mik.mtf_inverse_plain(*args, n_chunks=n_chunks)
+    assert got.dtype == exp.dtype == torch.int32 and torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [False, True], ids=["flat", "rows"])
+@pytest.mark.parametrize("level", [1, 9])
+def test_decode_kernels_match_plain_real_batch(cuda_device, monkeypatch,
+                                               level, rows):
+    """The symbol scan and MTF^-1 kernels on the inputs of a real 8-block
+    batch of the decoder (-9: three blocks, repeated; -1: eight), in flat
+    and row addressing: equal to the plain versions at every lane and
+    position; the decoder's own calls on the card never ran the plain
+    loops."""
+    n = 2_030_000 if level == 9 else 1_000_000
+    buf, pbs = parsed(((_golden(1) + _golden(2) + _golden(3)) * 8)[:n],
+                       level)
+    pbs = (pbs * 3)[:8]
+    name = "decode_symbols_rows" if rows else "decode_symbols"
+    scans = _spy_args(monkeypatch, TD, name)
+    mtfs = _spy_args(monkeypatch, TD, "mtf_inverse")
+    plains = (_spy_args(monkeypatch, sym_k, "symbol_scan_plain"),
+              _spy_args(monkeypatch, mik, "mtf_inverse_plain"))
+    res = dmod.launch_batch(cuda_device, level,
+                            dmod.batch_inputs(buf, pbs, rows=rows))
+    blocks, _ = dmod.fetch_batch(res)
+    assert all(b is not None for b in blocks)
+    assert plains == ([], []) and len(scans) == len(mtfs) == 1
+    assert scans[0][0].dim() == (2 if rows else 1)
+    _assert_symbols_match(scans[0])
+    _assert_mtf_match(mtfs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n_chunks", [(3050, 1), (3050, 16), (3050, 512),
+                                        (50, 512), (200_000, 512),
+                                        (100_050, 7)])
+def test_mtf_inverse_kernel_synthetic(cuda_device, M, n_chunks):
+    rng = np.random.default_rng(M + n_chunks)
+    _assert_mtf_match(tuple(torch.from_numpy(a).to(cuda_device) for a in
+                            mtf_rows(rng, M, -(-M // n_chunks))), n_chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [False, True], ids=["flat", "rows"])
+def test_symbol_scan_kernel_wraps_at_the_buffer_end(cuda_device, rows):
+    """Offsets in the buffer's last three bytes, random tables with long
+    codes, valid and invalid lanes: the kernel equals the plain scan."""
+    words, goff, gsel, gvalid, lens6, alpha = (
+        torch.from_numpy(a).to(cuda_device) for a in wrap_case(rows))
+    tables = TD.build_tables(lens6, alpha)
+    _assert_symbols_match((words, goff, gsel, gvalid, *tables))
+
+
 @pytest.mark.cuda
 def test_decoder_on_card(cuda_device):
     data, comp = _realistic_level9()
@@ -561,6 +644,7 @@ def test_decoder_on_card(cuda_device):
     assert dmod.ANOMALIES == {"lane": 0, "batch": 0}
     assert dmod.SHARE == {"blocks": 7, "dev_blocks": 7}
     assert ik.WALK.launches == 2 * 3
+    assert sym_k.SCAN.launches == mik.KERNEL.launches == 3
 
 
 @pytest.mark.cuda
@@ -685,6 +769,7 @@ def test_mesh_two_entries_on_card(cuda_device):
     _build.reset_launches()
     assert M.decode_blocks_sharded(mesh, stream) == data
     assert M.HEALS["lane"] == 0 and ik.WALK.launches > 0
+    assert sym_k.SCAN.launches > 0 and mik.KERNEL.launches > 0
     assert set(M.STAGE_WALL) == set(dmod.STAGES)
 
 
