@@ -7,8 +7,10 @@ that has no Pallas original.  Each (block, group) lane decodes its 50
 symbols from its start bit: per step one 32-bit window read, a 12-bit
 first-level lookup and, for an escape, a second-level lookup.  The plain
 version is that scan in torch ops over every byte's window
-(``_byte_windows``); the kernel runs every lane's 50 steps in one launch and
-builds each window from the two words it spans.  A wrapper runs its plain
+(``_byte_windows``); the kernel runs every lane's 50 steps in one launch, a
+CTA per 256 groups of one block with that block's selected ``lut1`` tables
+and its span of words staged in shared memory, and builds each window from
+the two words it spans.  A wrapper runs its plain
 version only for a tensor on the CPU; for a CUDA tensor it launches its
 kernel.
 """
@@ -104,8 +106,10 @@ def symbol_scan(words, goff, gsel, gvalid, lut1, lut2, esc_base):
         if tuple(t.shape) != shape:
             raise ValueError(f"symbol_scan {name}: expected {shape}, got "
                              f"{tuple(t.shape)}")
-    if WT == 0:
-        raise ValueError("symbol_scan: empty word buffer")
+    if WT == 0 or WT >= 1 << 31:
+        raise ValueError(f"symbol_scan: {WT} words")
+    if lut1.data_ptr() % 16:
+        raise ValueError("symbol_scan lut1: not 16-byte aligned")
     syms = torch.empty((B, G * G_SIZE), dtype=i32, device=goff.device)
     SCAN(_build.ptr(words), WT, WT if words.dim() == 2 else 0,
          _build.ptr(goff), _build.ptr(gsel), _build.ptr(gvalid),

@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--old-mtf PATH.cu] [--old-huffman PATH.cu]
                           [--old-walk PATH.cu ...]
+                          [--old-mtf-inverse PATH.cu]
+                          [--old-symbol-scan PATH.cu]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. print the toolchain and the card; fail without CUDA;
@@ -21,13 +23,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      The decoder's symbol-scan and MTF^-1 kernels are held at every input
      the decodes of the -9 stream and of phase 11c's -1 stream give them,
      through bzip2_tpu_torch.decompress (flat word buffer) and the
-     one-entry mesh (word rows), and MTF^-1 on synthetic rows at 1, 16
-     and 512 chunks; both are timed on the first -9 batch over several
-     CUDA-event samples, with torch.profiler's count of device launches
-     a call of kernel and plain, beside the byte bound (the symbol scan's
-     counts only the table entries a replay of that input reads) and the
-     chain bound (the longest dependent chain at the chase probe's step
-     costs).
+     one-entry mesh (word rows), MTF^-1 at the chunk count its
+     chunks_for picks, and MTF^-1 on synthetic rows at 1, 16 and 512
+     chunks and at chunks_for's count for 1, 3 and 8 rows; both are timed
+     on the first -9 batch over several CUDA-event samples of calls queued
+     behind a sleeping kernel (device_ms), with torch.profiler's count of
+     device launches a call of kernel and plain, beside the byte bound
+     (the symbol scan's counts only the table entries a replay of that
+     input reads) and the chain bound (the longest dependent chain of the
+     design at the chase probe's step costs: for MTF^-1 the longest
+     chunk's movers, whose share is printed first, and the two-level
+     compose).
      The Huffman-length kernel takes the 78 lanes of that batch's first
      refinement pass and a set of skewed lanes that halve and retry, and is
      timed beside the host heap of the hybrid path
@@ -38,16 +44,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      tt) from L2 and from a 16-CTA cluster's distributed shared memory, in
      ns a step, and prints how many such clusters the card holds at once
      (cudaOccupancyMaxActiveClusters); it also times a 16 KiB chase from
-     L1, a warp's dependent shuffles and a CTA's shared gathers between
-     barriers, the step costs of the symbol scan's and MTF^-1's chain
-     bounds.  The sort is timed beside
+     L1 and, staged as uint16, from shared memory, a warp's dependent
+     shuffles and a CTA's shared gathers between barriers, the step costs
+     of the symbol scan's and MTF^-1's chain bounds, and its rate probe
+     the card's rate of shuffles and of byte permutes (an integer ALU op)
+     at 48 warps an SM.  The sort is timed beside
      torch.sort of its packed key at every shape, mtf_tile_last beside one
      scatter_reduce_ "amax" and group_hist beside one torch.bincount.  With
      --old-mtf, --old-huffman or --old-walk (the last two may be given
      more than once), an earlier source of that kernel, built into
      build/probe/, is held against the current kernel's output (exact) on
      the same inputs and timed in turns with it: old, current, current,
-     old;
+     old; --old-mtf-inverse and --old-symbol-scan (each repeatable) do the
+     same on the first -9 decode batch, each turn the median of 5
+     device_ms samples of 10 calls, and print both designs' medians and
+     their ratio;
   4. compress ~16 MB of seeded text at -9 through bzip2_tpu_torch.compress
      in hybrid mode with one device worker and no host worker: the stream
      must equal bz2.compress(data, 9) and round-trip through
@@ -234,6 +245,10 @@ SURFACE_DIR = os.path.join(HERE, "build", "smoke")   # phase 9's files
 MESH_DIR = os.path.join(HERE, "build", "mesh")        # phase 10c's files
 MESH_CUT = 8 << 20      # phase 10c cuts the corpus here between its ranks
 CHASE_STEPS = (20_000, 220_000)   # the chase probe's two run lengths
+RATE_STEPS = (2_000, 22_000)      # the rate probe's two run lengths
+#: device_ms's sleeping kernel, about 2.3 ms at 1.75 GHz: time enough for
+#: the host to queue the timed calls behind it
+SLEEP_CYCLES = 4_000_000
 BENCH_BYTES = 85_000_000    # phase 11a: the bench at its own scale
 BENCH_ROUNDS = 3
 MATRIX_BYTES = 10 << 20     # phase 11c's level matrix and 11d's corpus
@@ -258,8 +273,10 @@ TOOLS = (
 #: 16 KiB table, the size of one of the symbol scan's lut1 tables), as
 #: ibwt_walk.cu reads tt, or from the distributed shared memory of a
 #: cluster that staged it (a row sliced over up to 16 CTAs), the design the
-#: walk was measured against; and the MTF^-1 kernel's two chains, a warp's
-#: dependent shuffles and a CTA's shared gathers between barriers
+#: walk was measured against, or from a CTA's own shared memory (a lut1
+#: table staged as uint16, as the symbol scan reads it); and the MTF^-1
+#: kernel's two chains, a warp's dependent shuffles and a CTA's shared
+#: gathers between barriers
 CHASE_PROBE = r"""
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -332,6 +349,58 @@ __global__ void __launch_bounds__(kThreads) chain_barrier(int steps,
     __syncthreads();
   }
   out[j] = s;
+}
+
+// one thread: each step a load from a 4,096-entry uint16 table staged in
+// shared memory, as the symbol scan reads its staged lut1 tables and words
+__global__ void chase_shared(const int* __restrict__ next, int n, int steps,
+                             int start, int* out) {
+  __shared__ unsigned short st[4096];
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    st[i] = (unsigned short)next[i];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int c = start;
+    for (int s = 0; s < steps; ++s) c = st[c];
+    *out = c;
+  }
+}
+
+extern "C" int probe_chase_shared(const int* next, int n, int steps,
+                                  int start, int* out, void* stream) {
+  if (n > 4096) return (int)cudaErrorInvalidValue;
+  chase_shared<<<1, kThreads, 0, (cudaStream_t)stream>>>(next, n, steps,
+                                                         start, out);
+  return (int)cudaGetLastError();
+}
+
+// 48 warps an SM, each thread four independent chains of steps: shuffles
+// (mode 0) or byte permutes (mode 1), to time the card's rate of each
+__global__ void __launch_bounds__(kThreads) rate_kernel(int mode, int steps,
+                                                        int* out) {
+  unsigned a = threadIdx.x, b = a * 3u, c = a * 5u, d = a * 7u;
+  if (mode == 0) {
+    for (int s = 0; s < steps; ++s) {
+      a = __shfl_sync(0xffffffffu, a, a + 1);
+      b = __shfl_sync(0xffffffffu, b, b + 3);
+      c = __shfl_sync(0xffffffffu, c, c + 5);
+      d = __shfl_sync(0xffffffffu, d, d + 7);
+    }
+  } else {
+    for (int s = 0; s < steps; ++s) {
+      asm("prmt.b32 %0, %0, %1, 0x2107;" : "+r"(a) : "r"(b));
+      asm("prmt.b32 %0, %0, %1, 0x2107;" : "+r"(b) : "r"(c));
+      asm("prmt.b32 %0, %0, %1, 0x2107;" : "+r"(c) : "r"(d));
+      asm("prmt.b32 %0, %0, %1, 0x2107;" : "+r"(d) : "r"(a));
+    }
+  }
+  out[blockIdx.x * kThreads + threadIdx.x] = (int)(a ^ b ^ c ^ d);
+}
+
+extern "C" int probe_rate(int mode, int steps, int ctas, int* out,
+                          void* stream) {
+  rate_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(mode, steps, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int probe_chain_shfl(int steps, int* out, void* stream) {
@@ -1208,8 +1277,9 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
     one thread chasing a random single-cycle permutation of n int32
     entries (a -9 row of tt) from L2 and from a cluster's distributed
     shared memory, of 8 n entries (a batch's tt) from L2 and of 4,096 (a
-    lut1 table) from L1; a warp's dependent shuffles ("shfl") and a CTA's
-    shared gathers between barriers ("barrier")."""
+    lut1 table) from L1 and, staged as uint16, from shared memory
+    ("shared"); a warp's dependent shuffles ("shfl") and a CTA's shared
+    gathers between barriers ("barrier")."""
     import ctypes as ct
 
     from bzip2_tpu_torch import _build
@@ -1226,6 +1296,8 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
                                        ct.c_void_p, ct.c_void_p]
     lib.probe_chase_cluster.argtypes = [ct.c_void_p, ct.c_int, ct.c_int,
                                         ct.c_int, ct.c_void_p, ct.c_void_p]
+    lib.probe_chase_shared.argtypes = [ct.c_void_p, ct.c_int, ct.c_int,
+                                       ct.c_int, ct.c_void_p, ct.c_void_p]
     lib.probe_chain_shfl.argtypes = [ct.c_int, ct.c_void_p, ct.c_void_p]
     lib.probe_chain_barrier.argtypes = [ct.c_int, ct.c_void_p, ct.c_void_p]
 
@@ -1252,6 +1324,7 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
         "DSMEM": chase(lib.probe_chase_cluster, n, cluster=True),
         "L2, 8 rows": chase(lib.probe_chase_global, 8 * n),
         "L1": chase(lib.probe_chase_global, 4096),
+        "shared": chase(lib.probe_chase_shared, 4096, cluster=True),
         "shfl": (lambda k: lib.probe_chain_shfl(k, out.data_ptr(), stream),
                  replay(lambda y: y[(y + 1) & 31], np.arange(32))),
         "barrier": (lambda k: lib.probe_chain_barrier(k, out.data_ptr(),
@@ -1270,6 +1343,19 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
                                      "cycle")
             ms.append(cuda_ms(torch, lambda: run(k), 3))
         ns[name] = (ms[1] - ms[0]) * 1e6 / (CHASE_STEPS[1] - CHASE_STEPS[0])
+    # the rates: warp instructions a ns an SM, 48 warps an SM (6 CTAs)
+    lib.probe_rate.argtypes = [ct.c_int] * 3 + [ct.c_void_p] * 2
+    ctas = 132 * 6
+    big = torch.empty(ctas * 256, dtype=torch.int32, device="cuda")
+    for mode, name in ((0, "shfl rate"), (1, "prmt rate")):
+        ms = []
+        for k in RATE_STEPS:
+            if lib.probe_rate(mode, k, ctas, big.data_ptr(), stream):
+                raise AssertionError("rate probe did not launch")
+            ms.append(cuda_ms(torch, lambda: lib.probe_rate(
+                mode, k, ctas, big.data_ptr(), stream), 3))
+        ns[name] = (4 * (RATE_STEPS[1] - RATE_STEPS[0]) * ctas * 8 / 132
+                    / ((ms[1] - ms[0]) * 1e6))
     occ = (ct.c_int * 3)()
     lib.probe_cluster_occupancy.argtypes = [ct.c_int, ct.c_void_p]
     if lib.probe_cluster_occupancy(n, occ):
@@ -1281,9 +1367,14 @@ def chase_pass(torch, lib, rng, n: int = 900_000) -> dict:
           f"{occ[0]} CTAs with {occ[1]} B each: "
           f"cudaOccupancyMaxActiveClusters {occ[2]}", flush=True)
     print(f"  chase probe over 16384 B (a lut1 table) from L1 "
-          f"{ns['L1']:.1f} ns a step; a warp's dependent shuffle "
+          f"{ns['L1']:.1f} ns a step, over 8192 B (one staged as uint16) "
+          f"from shared memory {ns['shared']:.1f} ns; a warp's dependent "
+          "shuffle "
           f"{ns['shfl']:.1f} ns; a 256-thread CTA's shared gather and "
           f"barrier {ns['barrier']:.1f} ns", flush=True)
+    print(f"  rate probe, 48 warps an SM, four independent chains a thread: "
+          f"{ns['shfl rate']:.3f} shuffles and {ns['prmt rate']:.3f} byte "
+          "permutes a ns an SM (warp instructions)", flush=True)
     return ns
 
 
@@ -1404,14 +1495,32 @@ def device_launches(torch, fn) -> int:
     return sum(n for _, n in by_name.values())
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of fn a call: reps calls queued behind a sleeping
+    kernel, so that the device runs them back to back whatever the host's
+    cost of a launch, timed with CUDA events; after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def _timed_pair(torch, name, kern, plain, args, work, chain) -> dict:
     """Kernel and plain on one recorded input: medians (and spread) of 5
-    and 3 CUDA-event samples, device launches a call by torch.profiler,
-    the bound from work(args, out) = (bytes, operations) and, beside it,
-    chain = (what the longest dependent chain is, its time in ms at the
-    chase probe's measured step costs)."""
+    samples of 10 kernel calls queued behind a sleep (device_ms) and of 3
+    CUDA-event samples of one plain call, device launches a call by
+    torch.profiler, the bound from work(args, out) = (bytes, operations)
+    and, beside it, chain = (what the longest dependent chain is, its time
+    in ms at the chase probe's measured step costs)."""
     out = exact(torch, name, kern, plain, args)[0]
-    ks = [cuda_ms(torch, lambda: kern(*args), 10) for _ in range(5)]
+    ks = [device_ms(torch, lambda: kern(*args), 10) for _ in range(5)]
     ps = [cuda_ms(torch, lambda: plain(*args), 1) for _ in range(3)]
     kn = device_launches(torch, lambda: kern(*args))
     pn = device_launches(torch, lambda: plain(*args))
@@ -1432,9 +1541,8 @@ def scan_reads(torch, args, out) -> tuple:
     """The symbol scan on args replayed in torch ops, with the plain
     version's windows, to count what this input makes it read: the
     distinct lut1 entries, the distinct lut2 entries its escapes read, and
-    the longest lane's dependent loads (a window and a lut1 entry each
-    step, and a lut2 entry each escape).  The replay's symbols must equal
-    the kernel's output."""
+    the most escapes (lut2 reads) of one lane.  The replay's symbols must
+    equal the kernel's output."""
     from bzip2_tpu_torch.ops import symbol_kernel as sym_k
     words, goff, gsel, gvalid, lut1, lut2, esc_base = args
     B, G = goff.shape
@@ -1464,18 +1572,108 @@ def scan_reads(torch, args, out) -> tuple:
     if not torch.equal(torch.stack(syms, 2).reshape(out.shape), out):
         raise AssertionError("the symbol scan's replay differs from it")
     return (torch.unique(torch.cat(k1s)).numel(),
-            torch.unique(torch.cat(k2s)).numel(),
-            2 * sym_k.G_SIZE + int(esc.max()))
+            torch.unique(torch.cat(k2s)).numel(), int(esc.max()))
 
 
-def decode_kernels_pass(torch, rng, recs: dict, ns: dict) -> dict:
+def _turns(torch, name, path, old, new) -> None:
+    """old, new, new, old, each the median of 5 device_ms samples of 10
+    calls; prints the four, each design's median and the ratio new / old."""
+    t = [float(np.median([device_ms(torch, f, 10) for _ in range(5)]))
+         for f in (old, new, new, old)]
+    o, n = float(np.median([t[0], t[3]])), float(np.median([t[1], t[2]]))
+    print(f"  old design {os.path.basename(path)} vs the current {name} in "
+          f"turns: old {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, old "
+          f"{t[3]:.4f} ms; medians old {o:.4f}, new {n:.4f} ms; ratio new / "
+          f"old {n / o:.3f}; outputs equal", flush=True)
+
+
+def old_mtf_inverse_pass(torch, lib, path, args) -> None:
+    """Phase 3 with --old-mtf-inverse: an earlier mtf_inverse.cu on args,
+    held against the current kernel's output, then timed in turns.  Its C
+    entry point, read from the source, is the first design's (11
+    parameters: the chunk count, MTF_CHUNKS, and an int32 (B, C, 256)
+    scratch for the chunks' start lists) or the current one's (12: the
+    chunk count and super-chunk size chunks_for and super_for pick, and a
+    uint8 (B, ceil(C / W), 256) scratch)."""
+    import ctypes as ct
+    import re
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
+    with open(path) as fh:
+        params = re.search(r"int bz2t_mtf_inverse\(([^)]*)\)", fh.read())
+    first = len(params.group(1).split(",")) == 11
+    fn = lib.bz2t_mtf_inverse
+    fn.argtypes = ([ct.c_void_p] * 7 + [ct.c_int] * (3 if first else 4)
+                   + [ct.c_void_p])
+    syms, used_list, n_used, _ = args
+    B, M = syms.shape
+    C = mik.MTF_CHUNKS if first else mik.chunks_for(B, M)
+    W = mik.super_for(C)
+    dev = syms.device
+    e = torch.empty((B, M), dtype=torch.uint8, device=dev)
+    perm = torch.empty((B, C, 256), dtype=torch.uint8, device=dev)
+    scratch = (torch.empty((B, C, 256), dtype=torch.int32, device=dev)
+               if first else
+               torch.empty((B, -(-C // W), 256), dtype=torch.uint8, device=dev))
+    vals = torch.empty((B, M), dtype=torch.int32, device=dev)
+    counts = (C,) if first else (C, W)
+
+    def old():
+        if fn(syms.data_ptr(), used_list.data_ptr(), n_used.data_ptr(),
+              e.data_ptr(), perm.data_ptr(), scratch.data_ptr(),
+              vals.data_ptr(), B, M, *counts, _build.stream_of(syms)):
+            raise AssertionError("old mtf_inverse did not launch")
+
+    old()
+    if not torch.equal(vals, mik.mtf_inverse(*args)):
+        raise AssertionError("the old mtf_inverse disagrees with the current "
+                             "one")
+    _turns(torch, "mtf_inverse", path, old, lambda: mik.mtf_inverse(*args))
+
+
+def old_symbol_scan_pass(torch, lib, path, args) -> None:
+    """Phase 3 with --old-symbol-scan: an earlier symbol_scan.cu (same C
+    entry point) on args, held against the current kernel's output, then
+    timed in turns."""
+    import ctypes as ct
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import symbol_kernel as sym_k
+    fn = lib.bz2t_symbol_scan
+    fn.argtypes = sym_k.SCAN.argtypes
+    words, goff = args[0], args[1]
+    B, G = goff.shape
+    WT = words.shape[-1]
+    out = torch.empty((B, G * sym_k.G_SIZE), dtype=torch.int32,
+                      device=goff.device)
+
+    def old():
+        if fn(words.data_ptr(), WT, WT if words.dim() == 2 else 0,
+              *(a.data_ptr() for a in args[1:]), out.data_ptr(), B, G,
+              _build.stream_of(goff)):
+            raise AssertionError("old symbol_scan did not launch")
+
+    old()
+    if not torch.equal(out, sym_k.symbol_scan(*args)):
+        raise AssertionError("the old symbol_scan disagrees with the current "
+                             "one")
+    _turns(torch, "symbol_scan", path, old, lambda: sym_k.symbol_scan(*args))
+
+
+def decode_kernels_pass(torch, rng, recs: dict, ns: dict, old_mtf=(),
+                        old_scan=()) -> dict:
     """Phase 3 for the decoder's symbol scan and MTF^-1 kernels: each held
     exactly against its plain version on every input recorded from the
     decodes in ``recs`` (label -> record_decode_inputs), flat and row
-    addressing, and MTF^-1 on synthetic rows at 1, 16 and 512 chunks;
-    then both timed on the first recorded -9 batch, beside their byte
-    bounds and their chain bounds at the step costs ``ns`` of chase_pass.
-    Returns the kernels line's entries."""
+    addressing (MTF^-1 at the chunk count chunks_for picks, plain at
+    MTF_CHUNKS), and MTF^-1 on synthetic rows at 1, 16 and 512 chunks and
+    at chunks_for's count for 1, 3 and 8 rows of 900,050; then both timed
+    on the first recorded -9 batch, beside their byte bounds and their
+    chain bounds at the step costs ``ns`` of chase_pass, the movers' share
+    printed first; ``old_mtf`` / ``old_scan`` = (library, path) of an
+    earlier design, held against the current one there and timed with it
+    in turns.  Returns the kernels line's entries."""
     from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
     from bzip2_tpu_torch.ops import symbol_kernel as sym_k
     from torch_decode_cases import mtf_rows
@@ -1492,24 +1690,28 @@ def decode_kernels_pass(torch, rng, recs: dict, ns: dict) -> dict:
                   mik.mtf_inverse_plain, args)
         print(f"  {label}: symbol_scan exact vs plain on groups (B x G) "
               f"{', '.join(shapes)}; mtf_inverse exact at every position of "
-              f"its {len(rec['mtf_inverse'])} batches (B x M) " + ", ".join(
-                  "x".join(map(str, a[0].shape)) for a in rec["mtf_inverse"]),
-              flush=True)
+              f"its {len(rec['mtf_inverse'])} batches (B x M, the kernel's "
+              "chunks) " + ", ".join(
+                  f"{'x'.join(map(str, a[0].shape))} "
+                  f"({mik.chunks_for(*a[0].shape)})"
+                  for a in rec["mtf_inverse"]), flush=True)
     dev = torch.device("cuda")
-    for M, C in ((3050, 1), (3050, 16), (3050, 512), (50, 512),
-                 (200_000, 512)):
-        args = tuple(torch.from_numpy(a).to(dev)
+    cases = [(M, C, 8) for M, C in ((3050, 1), (3050, 16), (3050, 512),
+                                    (50, 512), (200_000, 512))]
+    cases += [(900_050, mik.chunks_for(B, 900_050), B) for B in (1, 3, 8)]
+    for M, C, B in cases:
+        args = tuple(torch.from_numpy(a[:B]).to(dev)
                      for a in mtf_rows(rng, M, -(-M // C)))
         exact(torch, "mtf_inverse", lambda *a: mik.mtf_inverse(*a, C),
               lambda *a: mik.mtf_inverse_plain(*a, C), args)
-    print("  mtf_inverse exact vs plain on 8 synthetic rows (n_used 1..256, "
-          "runs, EOB, the list's top, garbage) at M x chunks 3050x1, "
-          "3050x16, 3050x512, 50x512, 200000x512", flush=True)
+    print("  mtf_inverse exact vs plain on synthetic rows (n_used 1..256, "
+          "runs, EOB, the list's top, garbage) at rows x M x chunks " +
+          ", ".join(f"{B}x{M}x{C}" for M, C, B in cases), flush=True)
 
     first = next(iter(recs.values()))
     sargs, margs = first["decode_symbols"][0], first["mtf_inverse"][0]
 
-    n1, n2, loads = scan_reads(torch, sargs, sym_k.symbol_scan(*sargs))
+    n1, n2, esc = scan_reads(torch, sargs, sym_k.symbol_scan(*sargs))
 
     def sym_work(args, out):
         # the words, the per-group inputs and esc_base read once, syms
@@ -1518,34 +1720,51 @@ def decode_kernels_pass(torch, rng, recs: dict, ns: dict) -> dict:
         return (tensor_bytes(args[0], *args[1:4], args[6], out)
                 + 4 * (n1 + n2), 12 * out.numel())
 
+    B, M = margs[0].shape
+    C = mik.chunks_for(B, M)
+    W = mik.super_for(C)
+    NS = -(-C // W)
+    K = -(-M // C)
+    s, nu = margs[0], margs[2]
+    moved = (s >= 2) & (s <= nu[:, None])
+    per_chunk = torch.nn.functional.pad(moved.int(), (0, C * K - M))
+    longest = int(per_chunk.reshape(B, C, K).sum(2).max())
+    print(f"  mtf_inverse on {B}x{M}: movers (2 <= s <= n_used) "
+          f"{int(moved.sum())} of {B * M}, a share of "
+          f"{float(moved.float().mean()):.4f}; {C} chunks of {K} "
+          f"(chunks_for), super-chunks of {W}, {NS} of them; the longest "
+          f"chunk's movers {longest}", flush=True)
+
     def mtf_work(args, out):
         # syms, used_list and n_used read, vals written; a symbol that
         # moves its entry to the front moves r + 1 list entries (1 when it
-        # does not), and the compose gathers 256 entries a chunk
-        s, _, nu, _ = args
+        # does not), and the two compose levels gather 256 entries a chunk
+        # and a super-chunk
         r = (s - 1).clamp(0, 255)
-        moved = (s >= 2) & (s <= nu[:, None])
-        ops = int(torch.where(moved, r + 1, 1).sum()) + \
-            s.shape[0] * mik.MTF_CHUNKS * 256
+        ops = int(torch.where(moved, r + 1, 1).sum()) + B * (C + NS) * 256
         return tensor_bytes(*args[:3], out), ops
 
-    B, M = margs[0].shape
-    K = -(-M // mik.MTF_CHUNKS)
+    for lib, path in old_scan:
+        old_symbol_scan_pass(torch, lib, path, sargs)
+    for lib, path in old_mtf:
+        old_mtf_inverse_pass(torch, lib, path, margs)
     return {
         "symbol_scan": _timed_pair(
             torch, "symbol_scan", sym_k.symbol_scan, sym_k.symbol_scan_plain,
             sargs, sym_work, (
-                f"the longest lane's {loads} dependent loads (a window and a "
-                f"lut1 entry a step, a lut2 entry an escape) at "
-                f"{ns['L1']:.1f} ns, the L1 chase; reads {n1} lut1 and {n2} "
-                "lut2 entries", loads * ns["L1"] * 1e-6)),
+                f"the longest lane's {2 * sym_k.G_SIZE} dependent shared "
+                f"loads (a staged window word and a lut1 entry a step) at "
+                f"{ns['shared']:.1f} ns, the shared chase, + {esc} lut2 "
+                f"loads at {ns['L1']:.1f} ns, the L1 chase; reads {n1} lut1 "
+                f"and {n2} lut2 entries",
+                (2 * sym_k.G_SIZE * ns["shared"] + esc * ns["L1"]) * 1e-6)),
         "mtf_inverse": _timed_pair(
             torch, "mtf_inverse", mik.mtf_inverse, mik.mtf_inverse_plain,
             margs, mtf_work, (
-                f"{K} local steps at {ns['shfl']:.1f} ns, a dependent "
-                f"shuffle, + {mik.MTF_CHUNKS} compose steps at "
+                f"the longest chunk's {longest} movers at {ns['shfl']:.1f} "
+                f"ns, a dependent shuffle, + {W} + {NS} compose steps at "
                 f"{ns['barrier']:.1f} ns, a shared gather and a barrier",
-                (K * ns["shfl"] + mik.MTF_CHUNKS * ns["barrier"]) * 1e-6))}
+                (longest * ns["shfl"] + (W + NS) * ns["barrier"]) * 1e-6))}
 
 
 def _child_gate(name: str, mode: str, stream: bytes) -> tuple:
@@ -2492,6 +2711,15 @@ def main() -> int:
     ap.add_argument("--old-walk", metavar="PATH.cu", action="append",
                     default=[], help="an earlier ibwt_walk.cu to check "
                     "against and time beside the current kernel (repeatable)")
+    ap.add_argument("--old-mtf-inverse", metavar="PATH.cu", action="append",
+                    default=[], help="an earlier mtf_inverse.cu (the first "
+                    "design's C entry point or the current one's) to check "
+                    "against and time in turns beside the current MTF^-1 "
+                    "kernels on the first -9 decode batch (repeatable)")
+    ap.add_argument("--old-symbol-scan", metavar="PATH.cu", action="append",
+                    default=[], help="an earlier symbol_scan.cu to check "
+                    "against and time in turns beside the current kernel on "
+                    "the first -9 decode batch (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))   # torch_decode_cases
@@ -2524,6 +2752,10 @@ def main() -> int:
     th.start()
     probes = {"chase": start_probe_build(chase_probe_source(), "chase")}
     for key, stem, path in [("mtf", "mtf_old", args.old_mtf),
+                            *((f"mtf_inverse{i}", "mtf_inverse_old", p)
+                              for i, p in enumerate(args.old_mtf_inverse)),
+                            *((f"symbol_scan{i}", "symbol_scan_old", p)
+                              for i, p in enumerate(args.old_symbol_scan)),
                             *((f"huffman{i}", "huffman_old", p)
                               for i, p in enumerate(args.old_huffman)),
                             *((f"walk{i}", "walk_old", p)
@@ -2714,7 +2946,12 @@ def main() -> int:
     recs["-1 one-entry mesh"] = decode_exact(
         lambda st: M.decode_blocks_sharded(M.make_mesh(), st), s1, d1,
         "mesh decode of the -1 stream")
-    results.update(decode_kernels_pass(torch, rng, recs, ns))
+    results.update(decode_kernels_pass(
+        torch, rng, recs, ns,
+        [(probe_lib(probes[f"mtf_inverse{i}"]), p)
+         for i, p in enumerate(args.old_mtf_inverse)],
+        [(probe_lib(probes[f"symbol_scan{i}"]), p)
+         for i, p in enumerate(args.old_symbol_scan)]))
     del recs, d1, s1
 
     # ---- phase 4: the slice through the port's entry point

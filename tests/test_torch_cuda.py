@@ -21,7 +21,8 @@ from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
 from bzip2_tpu_torch.ops import mtf_kernel as mk
 from bzip2_tpu_torch.ops import sort_kernel as sk
 from bzip2_tpu_torch.ops import symbol_kernel as sym_k
-from torch_decode_cases import mtf_rows, parsed, wrap_case
+from torch_decode_cases import (mtf_edge_rows, mtf_rows, parsed,
+                                span_case, wrap_case)
 
 INF = 0x7FFFFFFF
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -573,11 +574,14 @@ def _assert_symbols_match(args):
     assert got.dtype == exp.dtype == torch.int32 and torch.equal(got, exp)
 
 
-def _assert_mtf_match(args, n_chunks=mik.MTF_CHUNKS):
+def _assert_mtf_match(args, n_chunks=None):
+    """The kernel at n_chunks (None: chunks_for's count) against the plain
+    version at n_chunks (None: MTF_CHUNKS)."""
     before = mik.KERNEL.launches
     got = mik.mtf_inverse(*args, n_chunks=n_chunks)
     assert mik.KERNEL.launches == before + 1
-    exp = mik.mtf_inverse_plain(*args, n_chunks=n_chunks)
+    exp = mik.mtf_inverse_plain(
+        *args, n_chunks=mik.MTF_CHUNKS if n_chunks is None else n_chunks)
     assert got.dtype == exp.dtype == torch.int32 and torch.equal(got, exp)
 
 
@@ -629,6 +633,45 @@ def test_symbol_scan_kernel_wraps_at_the_buffer_end(cuda_device, rows):
         torch.from_numpy(a).to(cuda_device) for a in wrap_case(rows))
     tables = TD.build_tables(lens6, alpha)
     _assert_symbols_match((words, goff, gsel, gvalid, *tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [False, True], ids=["flat", "rows"])
+@pytest.mark.parametrize("G", [257, 300, 700])
+def test_symbol_scan_kernel_staging_edges(cuda_device, rows, G):
+    """The staged kernel at its edges: G groups a block not a multiple of
+    a CTA's 256, blocks selecting one, two and six tables, invalid lanes
+    outside every staged span (negative, past the buffer, in the last word
+    so the window wraps, in another block's groups): equal to the plain
+    scan at every lane."""
+    words, goff, gsel, gvalid, lens6, alpha = (
+        torch.from_numpy(a).to(cuda_device) for a in span_case(rows, G))
+    tables = TD.build_tables(lens6, alpha)
+    _assert_symbols_match((words, goff, gsel, gvalid, *tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n_chunks", [(6_100, None), (6_100, 1),
+                                        (6_100, 16), (100, 512), (100, None),
+                                        (250_000, None)])
+def test_mtf_inverse_kernel_edge_rows(cuda_device, M, n_chunks):
+    """Rows of all movers, of none (RUNA/RUNB only), n_used 1 (nothing
+    moves, reads away from the front) and r = 255 moves, at chunks_for's
+    count, at 1 and 16 chunks and with more chunks than symbols."""
+    rng = np.random.default_rng(M + (n_chunks or 0))
+    _assert_mtf_match(tuple(torch.from_numpy(a).to(cuda_device)
+                            for a in mtf_edge_rows(rng, M)), n_chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_mtf_inverse_kernel_chunks_for_long_rows(cuda_device, B):
+    """B rows of 900,050 symbols at the chunk count chunks_for picks (3,503
+    chunks for one row) against the plain version at MTF_CHUNKS."""
+    assert mik.chunks_for(B, 900_050) > mik.MTF_CHUNKS
+    rng = np.random.default_rng(B)
+    _assert_mtf_match(tuple(torch.from_numpy(a[:B]).to(cuda_device)
+                            for a in mtf_rows(rng, 900_050, 1_758)))
 
 
 @pytest.mark.cuda

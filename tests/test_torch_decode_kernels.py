@@ -19,7 +19,8 @@ from bzip2_tpu_torch.decoder import batch_inputs
 from bzip2_tpu_torch.ops import decode as TD
 from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
 from bzip2_tpu_torch.ops import symbol_kernel as sym_k
-from torch_decode_cases import mtf_rows, parsed, wrap_case
+from torch_decode_cases import (mtf_edge_rows, mtf_rows, parsed,
+                                span_case, wrap_case)
 
 
 def _t(a):
@@ -97,6 +98,49 @@ def test_symbol_scan_wraps_at_the_buffer_end(rows):
         e1 = int(lut1[b, gsel[b, 1], win >> 20])
         if e1 > 0:
             assert int(got[b, 50]) == e1 >> 5
+
+
+@pytest.mark.parametrize("rows", [False, True], ids=["flat", "rows"])
+def test_symbol_scan_plain_matches_jax_span_case(rows):
+    """The staged kernel's edge inputs (tests/test_torch_cuda.py holds the
+    kernel to the plain scan on them): G not a multiple of a CTA's 256
+    groups, per-block table subsets, invalid lanes outside every span."""
+    words, goff, gsel, gvalid, lens6, alpha = span_case(rows)
+    assert goff.shape[1] % 256 and not gvalid.all()
+    assert [set(np.unique(r)) for r in gsel] == [{0}, {2, 5}, set(range(6))]
+    got, exp = _scan_both(words, goff, gsel, gvalid,
+                          _jax_tables(lens6, alpha[None]))
+    _eq(got, exp)
+
+
+def _lens_batch(rng, B, max_len):
+    """B blocks of six random Kraft-complete code-length tables with codes
+    up to max_len bits."""
+    from bzip2_tpu_torch.oracle.huffman import make_code_lengths
+    alpha = rng.integers(3, 259, B).astype(np.int32)
+    lens6 = np.zeros((B, 6, 258), np.int32)
+    for b in range(B):
+        for t in range(6):
+            freq = (rng.pareto(0.5, alpha[b]) * 50).astype(np.int64) + 1
+            lens6[b, t, : alpha[b]] = make_code_lengths(freq, alpha[b],
+                                                        max_len)
+    return lens6, alpha
+
+
+@pytest.mark.parametrize("case", ["level1", "level9", "random20"])
+def test_build_tables_entries_fit_15_bits(batches, case):
+    """The symbol scan stages lut1 as uint16: every lut1 and lut2 entry
+    (len | sym << 5, 0 an escape) is in [0, 2^15), on the recorded batches'
+    tables and on random code lengths up to 20 bits."""
+    if case == "random20":
+        lens6, alpha = _lens_batch(np.random.default_rng(19), 6, 20)
+        assert lens6.max() > 12               # escapes to lut2 exist
+    else:
+        _, _, _, _, lens6, _, head = batches[(int(case[5:]), False)]
+        alpha = head[0]
+    for t in TD.build_tables(_t(lens6), _t(alpha))[:2]:
+        assert t.dtype == torch.int32
+        assert int(t.min()) >= 0 and int(t.max()) < 1 << 15
 
 
 def test_byte_windows_wrap_per_row():
@@ -248,3 +292,75 @@ def test_kernel_argtypes_match_c_signature(name):
     kinds = ["ptr" if a is ct.c_void_p else f"i{8 * ct.sizeof(a)}"
              for a in k.argtypes]
     assert _c_signatures()[k.symbol] == kinds
+
+
+# ------------------------------------------------- the card's chunking --
+
+@pytest.mark.parametrize("M", [1, 2, 50, 255, 256, 3050, 100_050, 557_150,
+                               900_050])
+def test_chunks_for_covers_every_row(M):
+    """For 1..95 rows, chunks_for's C: 1 <= C <= M, K = ceil(M / C) symbols
+    a chunk, no chunk empty ((C - 1) K < M <= C K), no more warps than the
+    card's slots unless one chunk a row, the same on every call; super_for
+    picks ceil(sqrt(C))."""
+    for B in range(1, 96):
+        C = mik.chunks_for(B, M)
+        assert C == mik.chunks_for(B, M)
+        K = -(-M // C)
+        assert 1 <= C <= M and (C - 1) * K < M <= C * K
+        assert C == 1 or B * (C - 1) < mik.CARD_WARPS
+        assert C == 1 or K >= mik.MIN_CHUNK
+        W = mik.super_for(C)
+        assert W * W >= C > (W - 1) * (W - 1)
+
+
+@pytest.mark.parametrize("case", ["level1", "level9", "rows", "edges"])
+def test_mtf_inverse_plain_at_card_chunks_matches_jax(batches, case):
+    """Chunk independence on the CPU: the plain MTF^-1 at the chunk count
+    the CUDA path takes (chunks_for) equals the JAX package's at its
+    default 512 chunks, on the recorded batches and on synthetic rows."""
+    rng = np.random.default_rng(29)
+    if case.startswith("level"):
+        words, goff, gsel, gvalid, lens6, used_list, head = batches[
+            (int(case[5:]), False)]
+        syms = np.asarray(JD.decode_symbols(
+            jnp.asarray(words.astype(np.uint32)), jnp.asarray(goff),
+            jnp.asarray(gsel), jnp.asarray(gvalid),
+            *(jnp.asarray(a) for a in _jax_tables(lens6, head))))
+        args = (syms, used_list, head[1], head[2])
+    elif case == "rows":
+        args = mtf_rows(rng, 20_050, 40)
+    else:
+        args = mtf_edge_rows(rng, 6_100)
+    C = mik.chunks_for(*args[0].shape)
+    assert C != mik.MTF_CHUNKS
+    got = mik.mtf_inverse_plain(*(_t(a) for a in args), n_chunks=C)
+    _eq(got, JD.mtf_inverse(*(jnp.asarray(a) for a in args)))
+
+
+def test_mtf_edge_rows_plain_matches_sequential():
+    """The kernel's edge rows (all movers, none, n_used 1, r = 255) through
+    the plain MTF^-1 at 1 and 16 chunks against the sequential MTF."""
+    args = mtf_edge_rows(np.random.default_rng(31), 1_030)
+    exp = _mtf_sequential(*args[:3])
+    for C in (1, 16):
+        _eq(mik.mtf_inverse_plain(*(_t(a) for a in args), n_chunks=C), exp)
+
+
+def test_mtf_inverse_default_chunks_on_cpu(monkeypatch):
+    """On the CPU, n_chunks None takes MTF_CHUNKS, as JAX does; a count
+    given is passed on."""
+    seen = []
+    real = mik.mtf_inverse_plain
+
+    def spy(*a):
+        seen.append(a[4])
+        return real(*a)
+
+    monkeypatch.setattr(mik, "mtf_inverse_plain", spy)
+    args = [_t(a) for a in mtf_rows(np.random.default_rng(3), 300, 10)]
+    mik.mtf_inverse(*args)
+    mik.mtf_inverse(*args, n_chunks=7)
+    assert seen == [mik.MTF_CHUNKS, 7]
+    with pytest.raises(ValueError):
+        mik.mtf_inverse(*args, n_chunks=0)
