@@ -10,7 +10,9 @@ failure raises: there is no fallback for a CUDA tensor.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and
 counts the successful launches (``launches``), so a run can show that its
-main path went through each kernel.
+main path went through each kernel.  Kernels inside a CUDA graph are
+counted on the card, as often as they ran; reading a count first adds
+those (:data:`SETTLERS`, which may wait for the card).
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ _lock = threading.Lock()
 #: guards the launch counters: the engine's device workers launch from
 #: several threads
 _count_lock = threading.Lock()
+#: callables that add the launches counted on the card (kernels inside CUDA
+#: graphs) to the counters; every read of a count calls them first
+SETTLERS: list = []
 
 
 def _sources() -> list[str]:
@@ -108,35 +113,76 @@ def _load():
 KERNELS: dict[str, "Kernel"] = {}
 
 
-class Kernel:
-    """One C entry point of the kernel library and its launch count."""
+class Function:
+    """One C entry point of the kernel library; a call raises when it
+    returns a CUDA error."""
+
+    failed = "CUDA call failed"
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
         self._fn = None
-        KERNELS[name] = self
 
-    def __call__(self, *args) -> None:
+    def rc(self, *args) -> int:
+        """Call the entry point; its return code (a cudaError_t)."""
         if self._fn is None:
             lib = _load()
             fn = getattr(lib, self.symbol)
             fn.restype = ct.c_int
             fn.argtypes = self.argtypes
             self._fn = fn
-        rc = self._fn(*args)
+        return self._fn(*args)
+
+    def raise_for(self, rc: int) -> None:
         if rc != 0:
             msg = _load().bz2t_error_string(rc).decode()
-            raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
+            raise RuntimeError(f"{self.name}: {self.failed}: {msg} ({rc})")
+
+    def __call__(self, *args) -> None:
+        self.raise_for(self.rc(*args))
+
+
+class Kernel(Function):
+    """A C entry point that launches a kernel, and its launch count."""
+
+    failed = "CUDA launch failed"
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        super().__init__(name, symbol, argtypes)
+        self._launches = 0
+        KERNELS[name] = self
+
+    @property
+    def launches(self) -> int:
+        """The launches so far, those the card counted included."""
+        settle_launches()
+        return self._launches
+
+    def __call__(self, *args) -> None:
+        super().__call__(*args)
         with _count_lock:
-            self.launches += 1
+            self._launches += 1
+
+
+def count_launches(kernels, n: int = 1) -> None:
+    """n launches of each kernel listed: the card ran them n times."""
+    with _count_lock:
+        for k in kernels:
+            k._launches += n
+
+
+def settle_launches() -> None:
+    for fn in SETTLERS:
+        fn()
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    settle_launches()
+    with _count_lock:
+        for k in KERNELS.values():
+            k._launches = 0
 
 
 def ptr(t) -> ct.c_void_p:

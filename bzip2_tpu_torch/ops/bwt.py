@@ -4,30 +4,50 @@
 Every reorder after the initial 16-byte sort packs its keys into one
 (a, b) int32 pair and goes through ``sort_kernel.sort_pairs``: ranks r1 and
 r2 and a position take 20 bits each, over the 62 usable bits of the pair
-(r1:20 | r2 hi 11 in a, r2 lo 9 | pos:20 in b).  The only device-dependent
-step is that function.  The initial 4-key sort is two stable
-``torch.sort``s of packed int64 keys: gapped ranks depend only on tie
-classes, so the order within a class does not matter.
+(r1:20 | r2 hi 11 in a, r2 lo 9 | pos:20 in b).  The initial 4-key sort is
+two stable ``torch.sort``s of packed int64 keys: gapped ranks depend only
+on tie classes, so the order within a class does not matter.
+
+The doubling loops (the full-width stage and each compact tail stage, the
+JAX package's ``lax.while_loop`` loops) run on the rows' device: each
+stage's loop test and one round are captured into a CUDA graph whose
+conditional WHILE node repeats the round while the test, run on the card,
+holds (``bwt_kernel.loop``).  The graphs keep the pointers and shapes
+they were captured on, so the loops' buffers and graphs form a plan: one
+for each (stream, N), with as many rows as the most a call on it has had;
+a call with fewer rows runs its rows and dummy rows of one byte, which
+resolve at once (``_plan``).  On a CUDA tensor a call that finds its plan
+makes no host sync from entry to return.  A call that makes a plan waits
+for the card (instantiating a graph with conditional nodes does), and so
+does one that drops a plan (a bigger one replaces it, or more than
+``_PLANS_MAX`` are kept); on the CPU the same loops run on the host
+through the plain versions.
 
 origPtr follows the tie policy of ``bzip2_tpu.oracle.bwt`` (last in-class
 slot).
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import torch
 
-from .sort_kernel import MIN_N, sort_pairs
+from .. import _build
+from . import bwt_kernel as bk
+from .sort_kernel import MIN_N, sort_buffers, sort_pairs
 
 INF = 0x7FFFFFFF
 P20 = (1 << 20) - 1
 _INIT_BYTES = 16          # initial rank depth (4 packed 32-bit keys)
-_MIRROR = 2048            # static width of the pad-mirror region
 
-#: when set, called as ``ROUND_HOOK(stage, k, unres)`` after each rank
-#: refresh of ``bwt_batched``: stage 0 for the initial 16-byte ranks and
-#: the full-width doubling rounds, 1, 2, ... for the compact tail stages;
-#: ``k`` is the prefix length the ranks now resolve and ``unres`` (B,) the
-#: positions still tied.  The measurement tools set it
+#: when set, called as ``ROUND_HOOK(stage, k, unres)`` for the initial
+#: 16-byte ranks and each doubling round that ran in a ``bwt_batched`` call:
+#: stage 0 for the initial ranks and the full-width rounds, 1, 2, ... for
+#: the compact tail stages; ``k`` is the prefix length the ranks then
+#: resolve and ``unres`` (B,) int32 the positions still tied.  The rows come
+#: from the round record the device writes, read once at the end of the
+#: call, and only when the hook is set.  The measurement tools set it
 #: (``tools/bwt_stats.py``, ``tools/scale_bench.py``).
 ROUND_HOOK = None
 
@@ -55,55 +75,6 @@ def _pack4(p0, p1, p2, p3):
     return (k - (1 << 31)).to(torch.int32)
 
 
-def _changed(cols):
-    """True where any column differs from its left neighbour (and at 0)."""
-    B, S = cols[0].shape
-    ch = torch.zeros((B, S), dtype=torch.bool, device=cols[0].device)
-    ch[:, 0] = True
-    for c in cols:
-        ch[:, 1:] |= c[:, 1:] != c[:, :-1]
-    return ch
-
-
-def _gapped_rerank(key_cols):
-    """Gapped rank (sorted index of the class's first member) and singleton
-    flag of every sorted entry."""
-    changed = _changed(key_cols)
-    B, S = changed.shape
-    j = torch.arange(S, dtype=torch.int32, device=changed.device)[None, :]
-    start = torch.cummax(torch.where(changed, j, 0), dim=1).values
-    nxt = torch.cat([changed[:, 1:], torch.ones((B, 1), dtype=torch.bool,
-                                                device=changed.device)], dim=1)
-    return start, changed & nxt
-
-
-def _scatter_rank(order, start, singleton, valid, n, N):
-    """Map gapped ranks back to position space and refresh the pad mirror.
-    Returns (rank (B,N), tied (B,N), unres (B,))."""
-    B = order.shape[0]
-    dev = order.device
-    v = (start << 1) | singleton.to(torch.int32)
-    # order is a permutation of 0..N-1 per row: a direct scatter inverts it
-    packed = torch.empty((B, N), dtype=torch.int32, device=dev)
-    packed.scatter_(1, order.to(torch.int64), v)
-    rank = packed >> 1
-    tied = ((packed & 1) == 0) & valid
-    unres = tied.sum(dim=1)
-    # overwrite the pad region with a cyclic mirror of rank[0:ms] so a roll
-    # can realise rank[(i+k) mod n] while k <= slack.  Only the lanes that
-    # land inside the row are written: the row's last slot may be the
-    # target of a kept lane, and a scatter with duplicate targets has no
-    # defined order on CUDA.
-    ms = min(_MIRROR, N)
-    jm = torch.arange(ms, dtype=torch.int64, device=dev)[None, :]
-    tgt = n.to(torch.int64)[:, None] + jm
-    keep = tgt < N
-    mv = rank[:, :ms]
-    rows = torch.arange(B, device=dev)[:, None].expand(B, ms)
-    rank[rows[keep], tgt[keep]] = mv[keep]
-    return rank, tied, unres
-
-
 def _tail_ladder(N: int) -> list[int]:
     def p2(x):
         return 1 << (max(x, 1) - 1).bit_length()
@@ -126,6 +97,146 @@ def _compact_by_sort(key, payload, cap):
     return torch.where(live, ks, -1), torch.where(live, vs, INF)
 
 
+class _Plan:
+    """The buffers of bwt_batched's doubling loops for B rows of width N on
+    one stream, each stage's loop on them, and (on a card) the loops' entry
+    and round counts."""
+
+    def __init__(self, B: int, N: int, dev):
+        i32 = torch.int32
+        self.B = B
+        self.n = torch.empty((B,), dtype=i32, device=dev)
+        self.rank = torch.empty((B, N), dtype=i32, device=dev)
+        self.tied = torch.empty((B, N), dtype=torch.bool, device=dev)
+        self.unres = torch.empty((B,), dtype=i32, device=dev)
+        self.ctl = bk.control(dev)
+        # the round record: the initial ranks and each round, at most one a
+        # doubling of k from 16 to N
+        self.rec = torch.empty((bk.rounds_bound(N) + 1, B + 2), dtype=i32,
+                               device=dev)
+        # rankD: rank with a dump column at N (dead tail lanes)
+        self.rankD = torch.full((B, N + 1), N, dtype=i32, device=dev)
+        ladder = _tail_ladder(N)
+        self.caps = ladder[1:] + [0]
+        # full width: the pair buffers are sort_pairs' width; the lanes past
+        # N hold the distinct (INF, bit29 | pos) sentinels, which sort last
+        NP = max(MIN_N, 1 << (N - 1).bit_length())
+        A = torch.empty((B, NP), dtype=i32, device=dev)
+        Bv = torch.empty((B, NP), dtype=i32, device=dev)
+        A[:, N:].fill_(INF)
+        Bv[:, N:].copy_((1 << 29) | torch.arange(N, NP, dtype=i32, device=dev))
+        self.counts = (None if dev.type == "cpu" else
+                       torch.zeros((len(ladder) + 1, 2), dtype=i32, device=dev))
+        full = bk.Round(self.rank, self.n, self.ctl, self.unres, A, Bv,
+                        sort_buffers(B, NP, dev), bk.rerank_tiles(B, N, dev),
+                        self.tied)
+        self.loops = [bk.StageLoop(full, self.ctl, self.unres, self.rec, N,
+                                   ladder[0], 0, bk.ENTRY_RECORD,
+                                   self._counts(0))]
+        # the compact tail stages: stage s refines (p, r1) of width
+        # ladder[s - 1] until at most caps[s - 1] positions a row are tied
+        self.tails = []
+        for stage, (C, cap) in enumerate(zip(ladder, self.caps), 1):
+            p = torch.empty((B, C), dtype=i32, device=dev)
+            r1 = torch.empty((B, C), dtype=i32, device=dev)
+            un = torch.empty((B, C), dtype=torch.bool, device=dev)
+            self.tails.append((p, r1, un))
+            tail = bk.Round(
+                self.rankD, self.n, self.ctl, self.unres,
+                torch.empty((B, C), dtype=i32, device=dev),
+                torch.empty((B, C), dtype=i32, device=dev),
+                sort_buffers(B, C, dev), bk.tail_tiles(B, C, dev), un, p, r1)
+            self.loops.append(bk.StageLoop(tail, self.ctl, self.unres,
+                                           self.rec, N, cap, stage, bk.ENTRY,
+                                           self._counts(stage)))
+        self.lock = threading.Lock()
+        self.dropped = False        # set, under lock, when the cache drops it
+
+    def _counts(self, stage: int):
+        return None if self.counts is None else self.counts[stage]
+
+    def fold(self) -> None:
+        """Add the launches the card counted in the plan's graphs; the
+        caller has synchronized the card."""
+        with _FOLD_LOCK:
+            for lp, c in zip(self.loops, self.counts.tolist()):
+                lp.fold(c)
+
+    def free(self) -> None:
+        """Count what the card ran, then drop the graphs: waits for the
+        card.  The graph lock is held throughout, so that no other thread
+        builds a graph while the card is synchronized."""
+        with bk.GRAPHS_LOCK:
+            torch.cuda.synchronize(self.rank.device)
+            self.fold()
+            for lp in self.loops:
+                lp.free()
+
+
+#: the plans of CUDA streams by (device, stream, N), least recently used
+#: first; past _PLANS_MAX an idle plan is dropped, which waits until its
+#: card is idle (its graphs are destroyed)
+_PLANS: OrderedDict = OrderedDict()
+_PLANS_MAX = 8
+_PLANS_LOCK = threading.Lock()
+_FOLD_LOCK = threading.Lock()
+
+
+def _plan(B: int, N: int, dev) -> _Plan:
+    """A plan of width N with at least B rows on the current stream,
+    locked: a new one on the CPU, else the cached one, made at the first
+    call and replaced by one of B rows when B is more than it has."""
+    if dev.type == "cpu":
+        plan = _Plan(B, N, dev)
+        plan.lock.acquire()
+        return plan
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, N)
+    while True:
+        idle, busy = [], []
+        with _PLANS_LOCK:
+            plan = _PLANS.get(key)
+            if plan is None or plan.B < B:
+                if plan is not None:        # too few rows: replaced
+                    plan.dropped = True
+                    busy.append(plan)
+                plan = _PLANS[key] = _Plan(B, N, dev)
+            _PLANS.move_to_end(key)
+            for k, old in list(_PLANS.items()):
+                if len(_PLANS) <= _PLANS_MAX:
+                    break
+                # an idle plan only: one another call holds stays
+                if k != key and old.lock.acquire(blocking=False):
+                    old.dropped = True
+                    idle.append(_PLANS.pop(k))
+        for old in busy:            # its call (same stream) ends soon
+            old.lock.acquire()
+            idle.append(old)
+        for old in idle:
+            old.free()
+            old.lock.release()
+        plan.lock.acquire()
+        if not plan.dropped:
+            return plan
+        plan.lock.release()     # dropped by another call meanwhile: again
+
+
+def _settle() -> None:
+    """Add the launches the card counted in the cached plans' graphs to
+    the kernels' counts (waits for the card)."""
+    with _PLANS_LOCK:
+        plans = list(_PLANS.values())
+    if not plans:
+        return
+    with bk.GRAPHS_LOCK:
+        for dev in {p.rank.device for p in plans}:
+            torch.cuda.synchronize(dev)
+        for p in plans:
+            p.fold()
+
+
+_build.SETTLERS.append(_settle)
+
+
 def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     """blocks: uint8 (B, N); n: int32 (B,) true lengths (>= 1).
 
@@ -135,13 +246,28 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     if N > (1 << 20):
         raise ValueError("rank packing assumes block size <= 2^20")
     dev = blocks.device
+    n = n.to(torch.int32)
+    plan = _plan(B, N, dev)
+    try:
+        if plan.B > B:          # dummy rows of one byte fill the plan
+            blocks = torch.cat([blocks, blocks.new_zeros((plan.B - B, N))])
+            n = torch.cat([n, n.new_ones(plan.B - B)])
+        last, orig_ptr, sa = _bwt(plan, blocks, n)
+        if ROUND_HOOK is not None:
+            _replay_rounds(plan.ctl, plan.rec, B)
+    finally:
+        plan.lock.release()
+    return last[:B], orig_ptr[:B], sa[:B]
+
+
+def _bwt(plan, blocks, n):
+    """bwt_batched on the plan's rows."""
+    B, N = blocks.shape
+    dev = blocks.device
     i32 = torch.int32
-    n = n.to(i32)
     idx = torch.arange(N, dtype=i32, device=dev)[None, :]
     valid = idx < n[:, None]
     nn = torch.clamp(n[:, None], min=1)
-    # the while_loop conditions of the JAX version become host decisions
-    min_slack = N - int(n.max().item())
 
     # --- cyclically-extended byte buffer: bx[i] = block[i mod n], i < n+16
     bi = torch.where(valid, blocks.to(i32), 0)
@@ -164,86 +290,39 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     hi1 = torch.gather(hi, 1, o1)
     hs, o2 = torch.sort(hi1, dim=1, stable=True)
     order64 = torch.gather(o1, 1, o2)
-    start, singleton = _gapped_rerank([hs, torch.gather(lo, 1, order64)])
-    rank, tied, unres = _scatter_rank(order64.to(i32), start, singleton,
-                                      valid, n, N)
-    if ROUND_HOOK is not None:
-        ROUND_HOOK(0, _INIT_BYTES, unres)
+    return _rounds_and_order(plan, bi, bx, n, valid, idx, hs,
+                             torch.gather(lo, 1, order64), order64)
 
+
+def _rounds_and_order(plan, bi, bx, n, valid, idx, hs, lo_s, order64):
+    """The initial ranks' rerank, the doubling loops on the plan's buffers,
+    then the final order, the last column and origPtr."""
+    B, N = plan.rank.shape
+    i32 = torch.int32
+    plan.n.copy_(n)
+    bk.rerank(hs, lo_s, order64, plan.n, plan.rank, plan.tied, plan.unres)
+    bk.reset_control(plan.ctl)
+    plan.rec.zero_()
     ladder = _tail_ladder(N)
-    cap0 = ladder[0]
 
     # ---------------- stage 1: full-width doubling passes ----------------
-    def neighbour_ranks(rank, k):
-        """rank[(i+k) mod n] (roll fast path when the pad mirror covers k)."""
-        if k <= min(min_slack, _MIRROR):
-            return torch.roll(rank, -k, 1)
-        return torch.gather(rank, 1,
-                            torch.remainder(idx + k, nn).to(torch.int64))
-
-    k = _INIT_BYTES
-    while k < N and bool((unres > cap0).any().item()):
-        r2 = neighbour_ranks(rank, k)
-        r1 = torch.where(valid, rank, P20)
-        r2 = torch.where(valid, r2, P20)
-        A = torch.where(valid, (r1 << 11) | (r2 >> 9), INF)
-        Bv = torch.where(valid, ((r2 & 511) << 20) | idx, (1 << 29) | idx)
-        As, Bs = _sort_cols(A, Bv)
-        start, singleton = _gapped_rerank([As, Bs >> 20])
-        rank, tied, unres = _scatter_rank(Bs & P20, start, singleton, valid,
-                                          n, N)
-        k *= 2
-        if ROUND_HOOK is not None:
-            ROUND_HOOK(0, k, unres)
+    bk.loop(plan.loops[0])
 
     # -------------- stages 2+: compact tail refinement --------------
-    # rankD has a dump column at N for discarded scatter lanes.
-    rankD = torch.cat([rank, torch.full((B, 1), N, dtype=i32, device=dev)],
-                      dim=1)
-    idx_b = idx.expand(B, N)
-    p_buf, r_buf = _compact_by_sort(torch.where(tied, idx_b, INF), rank, cap0)
-
-    def tail_stage(stage, rankD, p, r1, k, unres, next_thresh):
-        C = p.shape[1]
-        jc = torch.arange(C, dtype=i32, device=dev)[None, :]
-        unresolved = p >= 0
-        while k < N and bool((unres > next_thresh).any().item()):
-            live = p >= 0
-            q = torch.where(live, torch.remainder(p + k, nn), N)
-            n1 = torch.where(live, torch.gather(rankD, 1, q.to(torch.int64)),
-                             P20)
-            r1c = torch.where(live, torch.clamp(r1, max=P20), P20)
-            A = torch.where(live, (r1c << 11) | (n1 >> 9), INF)
-            Bv = torch.where(live, ((n1 & 511) << 20) | p, (1 << 29) | jc)
-            As, Bs = _sort_cols(A, Bv)
-            lives = As != INF
-            ps = torch.where(lives, Bs & P20, -1)
-            r1s = As >> 11
-            changed_seg = _changed([r1s])
-            changed_sub = changed_seg | _changed([As, Bs >> 20])
-            seg_start = torch.cummax(torch.where(changed_seg, jc, 0), 1).values
-            sub_start = torch.cummax(torch.where(changed_sub, jc, 0), 1).values
-            new_r1 = torch.where(lives, r1s + (sub_start - seg_start), INF)
-            nxt = torch.cat([changed_sub[:, 1:],
-                             torch.ones((B, 1), dtype=torch.bool, device=dev)],
-                            dim=1)
-            unresolved = ~(changed_sub & nxt) & lives
-            # dead lanes all write N into the dump column: order is moot
-            rankD.scatter_(1, torch.where(lives, ps, N).to(torch.int64),
-                           torch.where(lives, new_r1, N))
-            unres = unresolved.sum(dim=1)
-            p, r1, k = ps, new_r1, k * 2
-            if ROUND_HOOK is not None:
-                ROUND_HOOK(stage, k, unres)
-        return rankD, p, r1, unresolved, k, unres
-
-    for stage, cap in enumerate(ladder[1:] + [0], 1):
-        rankD, p_buf, r_buf, unres_f, k, unres = tail_stage(
-            stage, rankD, p_buf, r_buf, k, unres, cap)
+    plan.rankD[:, :N].copy_(plan.rank)
+    p_new, r_new = _compact_by_sort(
+        torch.where(plan.tied, idx.expand(B, N), INF), plan.rank, ladder[0])
+    for (p, r1, unresolved), cap, lp in zip(plan.tails, plan.caps,
+                                            plan.loops[1:]):
+        p.copy_(p_new)
+        r1.copy_(r_new)
+        # at stage entry every live buffer entry is (still) unresolved
+        torch.ge(p, 0, out=unresolved)
+        bk.loop(lp)
         if cap:
-            p_buf, r_buf = _compact_by_sort(
-                torch.where(unres_f, p_buf, INF), r_buf, cap)
-    rank = rankD[:, :N]
+            p_new, r_new = _compact_by_sort(torch.where(unresolved, p, INF),
+                                            r1, cap)
+    rank = plan.rankD[:, :N]
 
     # ---------------- final order + last column + origPtr ----------------
     lastb = torch.gather(bi, 1, torch.clamp(n - 1, min=0)[:, None].to(torch.int64))
@@ -258,3 +337,11 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     r0 = rank[:, :1]
     orig_ptr = (valid & (rank <= r0)).sum(dim=1) - 1
     return last, orig_ptr.to(i32), sa
+
+
+def _replay_rounds(ctl, rec, B: int) -> None:
+    """Feed ROUND_HOOK from the round record (one device read), for the
+    call's B rows."""
+    ctl, rec = ctl.cpu(), rec.cpu()
+    for row in rec[:int(ctl[bk.ROWS])]:
+        ROUND_HOOK(int(row[0]), int(row[1]), row[2:2 + B])

@@ -65,18 +65,21 @@ def sort_pairs_plain(a: torch.Tensor, b: torch.Tensor):
     return (ks >> 32).to(torch.int32), ((ks & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
-def sort_pairs(a: torch.Tensor, b: torch.Tensor):
+def sort_pairs(a: torch.Tensor, b: torch.Tensor, bufs=None):
     """Sort (a, b) int32 pairs lexicographically along dim 1.
 
     a, b: (B, N) int32, N a power of two in [128, 2^20].  Returns the
-    sorted (a, b) as new tensors (two views of one (2, B, N) buffer)."""
+    sorted (a, b) as new tensors (two views of one (2, B, N) buffer), or
+    views of ``bufs`` (``sort_buffers(B, N, device)``) when given."""
     _check_shape(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return sort_pairs_plain(a, b)
     _build.check(a, "sort_pairs a", torch.int32, 2)
     _build.check(b, "sort_pairs b", torch.int32, 2)
     rows, n = a.shape
-    out, k0, k1 = sort_buffers(rows, n, a.device)
+    out, k0, k1 = bufs if bufs is not None else sort_buffers(rows, n, a.device)
+    if tuple(out.shape) != (2, rows, n):
+        raise ValueError(f"sort_pairs: buffers of shape {tuple(out.shape)}")
     KERNEL(_build.ptr(a), _build.ptr(b), _build.ptr(out[0]), _build.ptr(out[1]),
            _build.ptr(k0), _build.ptr(k1), rows, n, TILE, _build.stream_of(a))
     return out[0], out[1]

@@ -9,7 +9,8 @@ bench corpus with ``ops.bwt.ROUND_HOOK`` set, and prints, after the
 initial 16-byte ranks and after each doubling round, the prefix length k
 the ranks resolve and each block's count of positions still tied at k:
 the full-width rounds (stage 0), then the compact tail stages (1, 2, ...).
-The counts depend on the data alone, not on the device.  Then the tail
+The rows come from the round record the device writes, read once at the
+end of the call.  The counts depend on the data alone, not on the device.  Then the tail
 ladder ``_tail_ladder(N)`` (the compaction widths) at each level's pad
 size N.
 """

@@ -16,7 +16,9 @@ encoded by the host engine, and ``encode`` the engine with no host worker
 on ``--reps`` slices of ``N / 3`` bytes.  Walls end in a device sync.  On
 a card each family's last call also runs under ``torch.profiler``, and its
 device busy share (the union of its kernel and copy intervals over the
-wall) is printed.
+wall) is printed, and for the ``bwt`` and ``pre`` families the host syncs
+one call makes (the warnings ``torch.cuda.set_sync_debug_mode("warn")``
+raises in it).
 """
 from __future__ import annotations
 
@@ -59,6 +61,33 @@ def busy_share(dev, fn) -> str:
             f"({100 * busy / wall:.1f}%, {len(spans)} device events)")
 
 
+def host_syncs(dev, fn) -> str:
+    """``fn()`` once under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    number of synchronizing calls PyTorch reports in it; "not measured
+    (cpu)" on the CPU."""
+    import warnings
+
+    import torch
+
+    if dev.type != "cuda":
+        fn()
+        return "not measured (cpu)"
+    torch.cuda.synchronize(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    # only the per-call warning: the mode's one-time "prototype" notice
+    # also names synchronization
+    n = sum("called a synchronizing CUDA operation" in str(w.message)
+            for w in caught)
+    return f"{n} host syncs a call"
+
+
 def batches(level: int, n_batches: int, bsz: int) -> list:
     """``n_batches`` disjoint (arr, ns, uses, crcs) batches of ``bsz``
     corpus blocks."""
@@ -73,7 +102,7 @@ def batches(level: int, n_batches: int, bsz: int) -> list:
             if len(blocks[b * bsz:(b + 1) * bsz]) == bsz]
 
 
-def _time(dev, fn, argsets: list, label: str) -> dict:
+def _time(dev, fn, argsets: list, label: str, syncs: bool = False) -> dict:
     import torch
 
     def call(args):
@@ -89,9 +118,11 @@ def _time(dev, fn, argsets: list, label: str) -> dict:
         call(args)
         walls.append(time.perf_counter() - t0)
     share = busy_share(dev, lambda: call(argsets[-1]))
+    nsync = host_syncs(dev, lambda: fn(*argsets[-1])) if syncs else None
     _say(f"{label}: {' '.join(f'{w * 1e3:.3f}' for w in walls)} ms (min "
-         f"{min(walls) * 1e3:.3f}); {share}")
-    return {"walls_s": walls, "busy": share}
+         f"{min(walls) * 1e3:.3f}); {share}"
+         + ("" if nsync is None else f"; {nsync}"))
+    return {"walls_s": walls, "busy": share, "syncs": nsync}
 
 
 def main(argv=None) -> dict:
@@ -168,14 +199,15 @@ def main(argv=None) -> dict:
             res[stage] = {"walls_s": walls, "busy": share}
         elif stage == "bwt":
             res[stage] = _time(dev, bwt_batched, [(b, n) for b, n, _u, _c
-                                                  in sets], "bwt")
+                                                  in sets], "bwt",
+                                syncs=True)
         elif stage == "mtf":
             lasts = [(bwt_batched(b, n)[0], n, u) for b, n, u, _c in sets]
             res[stage] = _time(dev, mtf_rle2_batched, lasts, "mtf+rle2")
         elif stage == "pre":
             res[stage] = _time(dev, encode_pre, [(b, n, u) for b, n, u, _c
                                                  in sets],
-                               "encode_pre (bwt+mtf+hist)")
+                               "encode_pre (bwt+mtf+hist)", syncs=True)
         else:
             outs = [encode_pre(b, n, u) for b, n, u, _c in sets]
             if stage == "iter":

@@ -91,7 +91,9 @@ def setup(device: str = "cuda", backend: str = "gpu",
 
 class _Rounds:
     """Counts ``bwt_batched`` calls and their doubling rounds through
-    ``ops.bwt.ROUND_HOOK`` (no device sync)."""
+    ``ops.bwt.ROUND_HOOK``.  The hook is fed from the round record the
+    device writes, read once at the end of each call: with the hook set,
+    each ``bwt_batched`` call makes that one host sync."""
 
     def __init__(self):
         self.batches = 0

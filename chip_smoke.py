@@ -168,6 +168,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the card engine, the card decoder's batches or the native decoders,
      and no kernel may launch in them.  Prints each step's seconds and
      MB/s.
+Phase 3 also holds the BWT's round kernels (bwt_keys, bwt_rerank,
+bwt_tail_rerank, bwt_gate) exactly against their plain versions on every
+round of a bwt_batched run, its stage loops driven from the host for the
+check, on the first -9 encode batch, 11c's -1 batch, the one-entry mesh's
+19-block batch and a batch of periodic rows
+(tests/torch_bwt_cases.RoundCheck), prints each kernel's launches a call,
+runs each batch once more under torch.cuda.set_sync_debug_mode("error")
+and once queued behind a sleeping kernel (it must return before the sleep
+ends: no host sync), times each kernel beside its plain version and its
+bound, and measures the loop the port keeps (a CUDA graph a stage with a
+conditional WHILE node) on the first -9 batch and the periodic batch:
+device launches, host time, device time and wall of one bwt_batched call.
+The design it was chosen over, a gated schedule of every stage's rounds up
+to their bound, is not built any more; PERF.md keeps its numbers.
 Phase 3 also holds the encode kernels at phase 11c's batches: at each
 of -1..-8 the first MATRIX_BYTES of the bench corpus are one batch, and
 sort_pairs at its padded width, mtf_tile_last, mtf_rank, group_hist and
@@ -206,6 +220,15 @@ REPLACES = {
                    "steps at :150; no Pallas original)",
     "mtf_inverse": "bzip2_tpu/ops/decode.py:214 mtf_inverse (lax.scans at "
                    ":259 and :267; no Pallas original)",
+    "bwt_keys": "bzip2_tpu/ops/bwt.py:238 full_body and :281 tail body, "
+                "their keys (lax.while_loops at :260 and :323; no Pallas "
+                "original)",
+    "bwt_rerank": "bzip2_tpu/ops/bwt.py:86 _gapped_rerank and :105 "
+                  "_scatter_rank (no Pallas original)",
+    "bwt_tail_rerank": "bzip2_tpu/ops/bwt.py:281 tail_stage body after its "
+                       "sort (lax.while_loop at :323; no Pallas original)",
+    "bwt_gate": "bzip2_tpu/ops/bwt.py:234 full_cond and :277 tail cond "
+                "(lax.while_loops at :260 and :323; no Pallas original)",
 }
 SOURCES = {
     "sort_pairs": "bzip2_tpu_torch/csrc/sort_pairs.cu",
@@ -216,6 +239,10 @@ SOURCES = {
     "huffman_lengths": "bzip2_tpu_torch/csrc/huffman_lengths.cu",
     "symbol_scan": "bzip2_tpu_torch/csrc/symbol_scan.cu",
     "mtf_inverse": "bzip2_tpu_torch/csrc/mtf_inverse.cu",
+    "bwt_keys": "bzip2_tpu_torch/csrc/bwt_rounds.cu",
+    "bwt_rerank": "bzip2_tpu_torch/csrc/bwt_rounds.cu",
+    "bwt_tail_rerank": "bzip2_tpu_torch/csrc/bwt_rounds.cu",
+    "bwt_gate": "bzip2_tpu_torch/csrc/bwt_rounds.cu",
 }
 # the CUDA kernels each wrapper launches, as the profiler names them
 SYMBOLS = {
@@ -228,8 +255,15 @@ SYMBOLS = {
     "symbol_scan": ("symbol_scan_kernel",),
     "mtf_inverse": ("mtf_local_kernel", "mtf_compose_kernel",
                     "mtf_anchor_kernel"),
+    "bwt_keys": ("full_keys_kernel", "tail_keys_kernel"),
+    "bwt_rerank": ("rerank_scan_kernel<true>", "rerank_scatter_kernel<true>",
+                   "rerank_scan_kernel<false>",
+                   "rerank_scatter_kernel<false>"),
+    "bwt_tail_rerank": ("tail_scan_kernel", "tail_scatter_kernel"),
+    "bwt_gate": ("gate_kernel",),
 }
-ENCODE = ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist")
+BWT = ("bwt_keys", "bwt_rerank", "bwt_tail_rerank", "bwt_gate")
+ENCODE = ("sort_pairs", "mtf_tile_last", "mtf_rank", "group_hist") + BWT
 FUSED = ENCODE + ("huffman_lengths",)
 DECODE = ("symbol_scan", "mtf_inverse", "ibwt_walk")
 #: the hybrid slice of phases 4 and 5: one device worker, every block on
@@ -2710,6 +2744,282 @@ def oracle_phase(torch, data: bytes, card: str) -> None:
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
 
 
+def bwt_batches(torch, blocks9: list, bt, nt) -> dict:
+    """Phase 3's BWT batches on the card: the first -9 encode batch, 11c's
+    -1 batch (every block of MATRIX_BYTES of the bench corpus), the
+    one-entry mesh's batch of all the corpus's -9 blocks and 13 periodic
+    rows at -9's width."""
+    from bzip2_tpu_torch import bench, engine
+    from torch_bwt_cases import periodic_rows
+    dev = torch.device("cuda")
+
+    def staged(blocks, level):
+        arr, ns, _u, _c = engine.batch_arrays(
+            blocks, len(blocks), engine._block_pad_size(level))
+        return engine.stage_from_numpy((arr, ns), dev)
+    pb, pn = periodic_rows(np.random.default_rng(SEED), 13,
+                           engine._block_pad_size(LEVEL))
+    return {
+        f"-{LEVEL} first batch": (bt, nt),
+        "-1 batch": staged(engine.split_blocks(
+            bench.make_corpus(MATRIX_BYTES), 1), 1),
+        "one-entry mesh": staged(blocks9, LEVEL),
+        "periodic": engine.stage_from_numpy((pb, pn), dev),
+    }
+
+
+#: phase 3's BWT batches each run on a stream of their own, as the
+#: engine's workers do: a stream keeps one plan a width, sized to the most
+#: rows a call on it has had (ops/bwt.py)
+_BWT_STREAMS: dict = {}
+
+
+def bwt_stream(torch, name: str):
+    if name not in _BWT_STREAMS:
+        _BWT_STREAMS[name] = torch.cuda.Stream()
+    return torch.cuda.stream(_BWT_STREAMS[name])
+
+
+def no_sync_check(torch, bwt, bt, nt) -> tuple:
+    """bwt_batched under set_sync_debug_mode("error"), then queued behind a
+    sleeping kernel: it must return before the sleep ends.  Returns the
+    host enqueue time of that call, in ms, and the launch counts of one
+    call."""
+    from bzip2_tpu_torch import _build
+    want = bwt.bwt_batched(bt, nt)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bwt.bwt_batched(bt, nt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = {k: _build.KERNELS[k].launches for k in ("sort_pairs",) + BWT}
+    asleep = torch.cuda.Event()
+    torch.cuda._sleep(1 << 31)
+    asleep.record()
+    t0 = time.perf_counter()
+    bwt.bwt_batched(bt, nt)
+    host = (time.perf_counter() - t0) * 1e3
+    if asleep.query():
+        raise AssertionError("bwt_batched waited for the sleeping kernel")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("bwt_batched differs under sync debug mode")
+    return host, launches
+
+
+def bwt_work(torch, key, sample) -> tuple:
+    """(bytes, operations) of one call of a round kernel on its sample:
+    each input read once and each output written once, a scatter or a
+    random gather counted at a 32-byte sector an entry it touches."""
+    w, form = key
+    if w == "keys":
+        rank, n, _ctl, A, _B, p, _r1 = sample
+        if p is None:                    # rank read, the pair written
+            return tensor_bytes(rank) + 2 * tensor_bytes(rank), 0
+        # p read at every entry, r1 only at a live one, a rankD sector a
+        # live one (no more than rankD once), the pair written at every one
+        live = int((p >= 0).sum())
+        return (tensor_bytes(p) + 4 * live + min(32 * live, tensor_bytes(rank))
+                + 2 * tensor_bytes(A)), 0
+    if w == "rerank":
+        ka, kb, order, _n, rank, _t, _u = sample
+        reads = tensor_bytes(ka, kb) + (0 if order is None
+                                        else tensor_bytes(order))
+        return reads + 2 * 32 * rank.numel(), 0   # rank and tied scattered
+    if w == "tail_rerank":
+        As, Bs, _rd, p, r1, un, _u = sample
+        live = int((As != 0x7FFFFFFF).sum())
+        return tensor_bytes(As, Bs, p, r1, un) + 32 * live, 0
+    ctl, unres = sample[0], sample[1]
+    return tensor_bytes(ctl, unres), unres.numel()
+
+
+def bwt_call(torch, key, sample) -> tuple:
+    """(kernel, plain): one call of the round kernel's wrapper on its
+    sample, writing into outputs made once (every write is idempotent, so
+    calls may repeat), and its plain version; each returns what it
+    writes."""
+    from bzip2_tpu_torch.ops import bwt_kernel as bk
+    w, _form = key
+    if w == "keys":
+        rank, n, ctl, A, Bv, p, r1 = sample
+        C = A.shape[1] if p is not None else rank.shape[1]
+        k = int(ctl[bk.K])
+        a, b = torch.empty_like(A), torch.empty_like(Bv)
+
+        def kern():
+            bk.keys(rank, n, ctl, a, b, p=p, r1=r1)
+            return a[:, :C], b[:, :C]
+        if p is None:
+            return kern, lambda: bk.full_keys_plain(rank, n, k)
+        return kern, lambda: bk.tail_keys_plain(rank, p, r1, n, k)
+    if w == "rerank":
+        ka, kb, order, n, rank, tied, unres = sample
+        outs = [torch.empty_like(x) for x in (rank, tied, unres)]
+
+        def kern():
+            bk.rerank(ka, kb, order, n, *outs)
+            return tuple(outs)
+        return kern, lambda: bk.rerank_plain(ka, kb, order, n, rank.shape[1])
+    if w == "tail_rerank":
+        As, Bs, rankD, p, r1, un, unres = sample
+        outs = [torch.empty_like(x) for x in (p, r1, un, unres)]
+        rk, rp = rankD.clone(), rankD.clone()
+
+        def kern():
+            bk.tail_rerank(As, Bs, rk, *outs)
+            return (*outs, rk)
+        return kern, lambda: (*bk.tail_rerank_plain(As, Bs, rp), rp)
+    ctl, unres, _rec, N, thresh, stage, _mode = sample
+    ck, cp = ctl.clone(), ctl.clone()
+
+    def kern():
+        bk.gate(ck, unres, None, N, thresh, stage, bk.ENTRY)
+        return (ck,)
+
+    def plain():
+        bk.gate_plain(cp, unres, None, N, thresh, stage, bk.ENTRY)
+        return (cp,)
+    return kern, plain
+
+
+def bwt_pass(torch, batches: dict) -> dict:
+    """Phase 3's BWT round kernels: each held against its plain version on
+    every round of a host-looped bwt_batched run on each batch; each batch
+    then run once through the WHILE graphs without a host sync, its
+    launches printed; each kernel timed on the first -9 batch's inputs (a
+    form that batch does not run, on the first batch that does).  Each
+    batch runs on a stream of its own.  Returns the kernels line's
+    entries."""
+    from torch_bwt_cases import KERNEL_OF
+    samples = {}
+    for name, (bt, nt) in batches.items():
+        with bwt_stream(torch, name):
+            rc, looped, host, launches = _bwt_batch_pass(torch, name, bt, nt)
+        print(f"  bwt {name} {'x'.join(map(str, bt.shape))}: host-looped "
+              "for the check, each round's calls held exactly vs plain: "
+              + ", ".join(f"{KERNEL_OF[w]} {rc.checked[w]}" for w in KERNEL_OF)
+              + "; one call through the WHILE graphs launches "
+              + json.dumps(launches) + " (inside a graph, one launch a "
+              "round that ran, counted on the card; equal to the host-driven "
+              f"run's), 0 host syncs (sync debug mode "
+              f"\"error\") and returned {host:.1f} ms into a sleeping "
+              "kernel", flush=True)
+        for key, sample in rc.samples.items():
+            samples.setdefault(key, (name, sample))
+    return _bwt_times(torch, samples)
+
+
+def _bwt_batch_pass(torch, name, bt, nt) -> tuple:
+    """bwt_pass on one batch, on the current stream."""
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import bwt
+    from torch_bwt_cases import KERNEL_OF, RoundCheck
+    _build.reset_launches()
+    with RoundCheck() as rc:
+        bwt.bwt_batched(bt, nt)
+    torch.cuda.synchronize()
+    for w, kname in KERNEL_OF.items():
+        if _build.KERNELS[kname].launches != rc.calls[w]:
+            raise AssertionError(f"{kname}: {_build.KERNELS[kname].launches}"
+                                 f" launches for {rc.calls[w]} calls")
+    looped = {k: _build.KERNELS[k].launches for k in ("sort_pairs",) + BWT}
+    host, launches = no_sync_check(torch, bwt, bt, nt)
+    if launches != looped:
+        raise AssertionError(f"bwt {name}: the graphs counted {launches} "
+                             f"launches, the host-driven loop {looped}")
+    return rc, looped, host, launches
+
+
+def _bwt_times(torch, samples: dict) -> dict:
+    """Each round kernel timed beside its plain version and bound on its
+    sample; the kernels line's entries."""
+    from torch_bwt_cases import KERNEL_OF
+    # the kernels line: the forms one -9 text batch runs most
+    line = {"bwt_keys": ("keys", "tail"), "bwt_rerank": ("rerank", "wide"),
+            "bwt_tail_rerank": ("tail_rerank", "tail"),
+            "bwt_gate": ("gate", "mode0")}
+    res = {}
+    # written before each cold call: 128 MiB, past the card's 50 MB L2
+    scrub = torch.zeros(32 << 20, dtype=torch.int32, device="cuda")
+    for key in sorted(samples):
+        if key[0] == "gate" and key[1] != "mode0":
+            continue                  # the gate is timed at a stage's entry
+        name, sample = samples[key]
+        kern, plain = bwt_call(torch, key, sample)
+        exact(torch, f"bwt {key}", lambda *_: kern(), lambda *_: plain(), ())
+        ks = [device_ms(torch, kern, 10) for _ in range(3)]
+        cold = cuda_ms_each(torch, kern, 5, lambda: scrub.add_(1))
+        ps = [cuda_ms(torch, plain, 1) for _ in range(3)]
+        b = bound(*bwt_work(torch, key, sample))
+        ms, plain_ms = float(np.median(ks)), float(np.median(ps))
+        shape = "x".join(map(str, sample[0].shape))
+        live = ("" if key != ("keys", "tail") else
+                f", {int((sample[5] >= 0).sum())} of {sample[5].numel()} "
+                "entries live")
+        print(f"  {KERNEL_OF[key[0]]} ({key[1]}, {name} {shape}{live}): "
+              f"kernel {ms:.4f} ms back to back (3 samples "
+              f"{min(ks):.4f}-{max(ks):.4f}), {cold:.4f} ms a call after "
+              f"the L2 is overwritten, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); max_abs_err 0",
+              flush=True)
+        for kname, want in line.items():
+            if want == key:
+                res[kname] = {"max_abs_err": 0, "ms": ms,
+                              "plain_ms": plain_ms, **b, "library_ms": None}
+    missing = [k for k in line if k not in res]
+    if missing:
+        raise AssertionError(f"no -9 sample for {missing}")
+    return res
+
+
+def loop_pass(torch, batches: dict, reps: int = 4) -> None:
+    """The BWT's device loop, a CUDA graph a stage with a conditional WHILE
+    node (bwt_kernel.loop), on one bwt_batched call of each batch: device
+    launches a call (torch.profiler), host time of a call queued behind a
+    sleeping kernel (it must return before the sleep ends), device time
+    (CUDA events around that call) and wall (call and sync), medians of
+    reps.  The gated schedule it was chosen over queued every stage's
+    rounds up to their bound; PERF.md keeps its numbers."""
+    from bzip2_tpu_torch.ops import bwt
+
+    def run(bt, nt):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        asleep = torch.cuda.Event()
+        torch.cuda._sleep(1 << 31)
+        asleep.record()
+        t0.record()
+        h0 = time.perf_counter()
+        bwt.bwt_batched(bt, nt)
+        host = (time.perf_counter() - h0) * 1e3
+        if asleep.query():
+            raise AssertionError("the WHILE loop's bwt_batched waited for "
+                                 "the sleeping kernel")
+        t1.record()
+        torch.cuda.synchronize()
+        dev = t0.elapsed_time(t1)
+        w0 = time.perf_counter()
+        bwt.bwt_batched(bt, nt)
+        torch.cuda.synchronize()
+        return host, dev, (time.perf_counter() - w0) * 1e3
+
+    for name, (bt, nt) in batches.items():
+        with bwt_stream(torch, name):
+            launches = device_launches(torch, lambda: bwt.bwt_batched(bt, nt))
+            times = [run(bt, nt) for _ in range(reps)]
+        med = [float(np.median([t[i] for t in times])) for i in range(3)]
+        print(f"  loop, bwt {name} {'x'.join(map(str, bt.shape))}, medians "
+              f"of {reps}: WHILE graphs {launches} device launches, host "
+              f"{med[0]:.2f} ms (returned before the sleep ended {reps} of "
+              f"{reps}), device {med[1]:.2f} ms, wall {med[2]:.2f} ms",
+              flush=True)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2873,7 +3183,12 @@ def main() -> int:
     results["huffman_lengths"] = huffman_pass(
         torch, rng, bt, nt, ut, old=[(probe_lib(probes[f"huffman{i}"]), p)
                                      for i, p in enumerate(args.old_huffman)])
-    del bt, nt, ut
+    # the BWT's round kernels at four batches, then its device loop
+    bwt_sets = bwt_batches(torch, blocks, bt, nt)
+    results.update(bwt_pass(torch, bwt_sets))
+    loop_pass(torch, {k: bwt_sets[k] for k in (
+        f"-{LEVEL} first batch", "periodic")})
+    del bt, nt, ut, bwt_sets
     # phase 10's batch shapes: all 19 blocks on the one-entry mesh, 10 on
     # the first of two entries (and on rank 1 of phase 10c)
     for rows in (len(blocks), -(-len(blocks) // 2)):

@@ -14,6 +14,8 @@ import torch
 
 from bzip2_tpu_torch import _build
 from bzip2_tpu_torch import decoder as dmod
+from bzip2_tpu_torch.ops import bwt as tbwt
+from bzip2_tpu_torch.ops import bwt_kernel as bk
 from bzip2_tpu_torch.ops import decode as TD
 from bzip2_tpu_torch.ops import huffman as hk
 from bzip2_tpu_torch.ops import ibwt_kernel as ik
@@ -21,6 +23,7 @@ from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
 from bzip2_tpu_torch.ops import mtf_kernel as mk
 from bzip2_tpu_torch.ops import sort_kernel as sk
 from bzip2_tpu_torch.ops import symbol_kernel as sym_k
+from torch_bwt_cases import KERNEL_OF, RoundCheck, periodic_rows
 from torch_decode_cases import (mtf_edge_rows, mtf_rows, parsed,
                                 span_case, wrap_case)
 
@@ -90,7 +93,8 @@ def test_kernels_registered_with_counters():
     assert set(_build.KERNELS) == {"sort_pairs", "mtf_tile_last", "mtf_rank",
                                    "group_hist", "ibwt_walk",
                                    "huffman_lengths", "symbol_scan",
-                                   "mtf_inverse"}
+                                   "mtf_inverse", "bwt_keys", "bwt_rerank",
+                                   "bwt_tail_rerank", "bwt_gate"}
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())
 
@@ -828,3 +832,188 @@ def test_default_mesh_on_card(cuda_device):
     stream, n = _mesh_encode(mesh, data, 9)
     assert n == 2 and stream == expect
     assert M.decode_blocks_sharded(mesh, stream) == data
+
+
+# ------------------------------------------------- the BWT's rounds (card) --
+
+def _bwt_batch(level: int, rows: int, dev) -> tuple:
+    """The engine's first batch of ``rows`` blocks of the bench corpus at
+    ``level``, on the card: (blocks uint8 (rows, N), n int32 (rows,))."""
+    from bzip2_tpu_torch import engine
+    from bzip2_tpu_torch.bench import make_corpus
+    N = engine._block_pad_size(level)
+    size = (rows + 1) * 100_000 * level
+    while len(blocks := engine.split_blocks(make_corpus(size), level)) < rows:
+        size *= 2
+    arr, ns, _u, _c = engine.batch_arrays(blocks[:rows], rows, N)
+    return (torch.from_numpy(arr).to(dev), torch.from_numpy(ns).to(dev))
+
+
+def _bwt_case(case: str, dev) -> tuple:
+    if case == "-9 batch":
+        return _bwt_batch(9, 13, dev)
+    if case == "-1 batch":
+        return _bwt_batch(1, 95, dev)
+    b, n = periodic_rows(np.random.default_rng(13), 13, 901_120)
+    return torch.from_numpy(b).to(dev), torch.from_numpy(n).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["-9 batch", "-1 batch", "periodic"])
+def test_bwt_round_kernels_match_plain(cuda_device, case):
+    """Every round kernel equals its plain version on every call of a
+    bwt_batched run whose gate is open (the first -9 encode batch,
+    13 x 901,120; the -1 batch, 95 x 100,352; 13 periodic rows), and each
+    is launched on each call of its wrapper."""
+    blocks, n = _bwt_case(case, cuda_device)
+    _build.reset_launches()
+    with RoundCheck() as rc:
+        tbwt.bwt_batched(blocks, n)
+    for w, kname in KERNEL_OF.items():
+        assert _build.KERNELS[kname].launches == rc.calls[w], w
+    assert rc.checked["rerank"] >= 1 and rc.checked["gate"] >= 6
+    if case == "periodic":
+        assert rc.checked["keys"] >= 10
+    else:
+        assert rc.checked["tail_rerank"] >= 1
+    assert max(rc.err.values()) == 0
+
+
+@pytest.mark.cuda
+def test_bwt_batched_card_equals_cpu(cuda_device):
+    """The whole BWT on the card equals the CPU's (plain versions, same
+    gated schedule) on periodic, constant, n = 1, n = N and random rows."""
+    b, n = periodic_rows(np.random.default_rng(5), 16, 1 << 15)
+    got = tbwt.bwt_batched(torch.from_numpy(b).to(cuda_device),
+                           torch.from_numpy(n).to(cuda_device))
+    exp = tbwt.bwt_batched(torch.from_numpy(b), torch.from_numpy(n))
+    for g, e in zip(got, exp):
+        assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["-9 batch", "periodic"])
+def test_bwt_batched_makes_no_host_sync(cuda_device, case):
+    """bwt_batched runs under set_sync_debug_mode("error") (no ROUND_HOOK),
+    and queued behind a sleeping kernel it returns before the sleep ends."""
+    blocks, n = _bwt_case(case, cuda_device)
+    want = tbwt.bwt_batched(blocks, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbwt.bwt_batched(blocks, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    asleep = torch.cuda.Event()
+    torch.cuda._sleep(1 << 31)              # about a second at 1.75 GHz
+    asleep.record()
+    tbwt.bwt_batched(blocks, n)
+    assert not asleep.query()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_bwt_batched_on_two_streams_at_once(cuda_device):
+    """Two threads, each on its own stream (as the engine's two device
+    workers), build and launch their loop graphs at the same time; each
+    result equals the one made alone, and every round kernel is launched."""
+    import threading
+    cases = [_bwt_case("-9 batch", cuda_device), _bwt_case("periodic",
+                                                            cuda_device)]
+    want = [tbwt.bwt_batched(b, n) for b, n in cases]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got, errs = [None, None], []
+
+    def work(i):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                for _ in range(3):
+                    got[i] = tbwt.bwt_batched(*cases[i])
+            s.synchronize()
+        except BaseException as e:          # surfaced below
+            errs.append(e)
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errs, errs
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert torch.equal(x, y)
+    assert all(_build.KERNELS[k].launches > 0 for k in KERNEL_OF.values())
+
+
+@pytest.mark.cuda
+def test_bwt_round_hook_reads_the_card_record(cuda_device, monkeypatch):
+    """ROUND_HOOK sees the card's round record: the initial ranks and each
+    round that ran, k doubling from 16."""
+    blocks, n = _bwt_case("periodic", cuda_device)
+    rows = []
+    monkeypatch.setattr(tbwt, "ROUND_HOOK",
+                        lambda s, k, u: rows.append((s, k, u.tolist())))
+    tbwt.bwt_batched(blocks, n)
+    ks = [k for _s, k, _u in rows]
+    assert ks == [16 << i for i in range(len(ks))]
+    assert len(rows) == bk.rounds_bound(901_120) + 1
+    assert all(s == 0 for s, _k, _u in rows)
+
+
+BWT_COUNTED = ("sort_pairs",) + tuple(KERNEL_OF.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["-9 batch", "periodic"])
+def test_bwt_graph_launches_count_the_rounds_that_ran(cuda_device, case):
+    """The launches a call through the WHILE graphs counts (on the card, a
+    round at a time) equal those of the same call with its loops driven
+    from the host, kernel by kernel."""
+    blocks, n = _bwt_case(case, cuda_device)
+    tbwt.bwt_batched(blocks, n)             # the plan and its graphs
+    _build.reset_launches()
+    with RoundCheck():
+        tbwt.bwt_batched(blocks, n)
+    looped = {k: _build.KERNELS[k].launches for k in BWT_COUNTED}
+    _build.reset_launches()
+    tbwt.bwt_batched(blocks, n)
+    graphs = {k: _build.KERNELS[k].launches for k in BWT_COUNTED}
+    assert graphs == looped
+    # periodic rows resolve in the full-width stage: no tail round runs
+    assert all(v > 0 for k, v in graphs.items()
+               if case == "-9 batch" or k != "bwt_tail_rerank")
+
+
+@pytest.mark.cuda
+def test_bwt_fewer_rows_run_in_the_plan_without_a_sync(cuda_device):
+    """A call with fewer rows than its stream's plan for N runs in that
+    plan (dummy rows fill it): no new plan, no host sync, and its rows
+    equal the same rows of the full call."""
+    blocks, n = _bwt_case("-9 batch", cuda_device)
+    want = tbwt.bwt_batched(blocks, n)
+    torch.cuda.synchronize()
+    plans = dict(tbwt._PLANS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbwt.bwt_batched(blocks[:4].contiguous(), n[:4].contiguous())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dict(tbwt._PLANS) == plans
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[:4])
+
+
+@pytest.mark.cuda
+def test_bwt_plans_dropped_while_threads_capture_and_launch(cuda_device):
+    """Two threads on their own streams call bwt_batched over more widths
+    than the plan cache keeps, so that plans are made, replaced and
+    dropped on one thread while the other captures and launches: every
+    result equals the one made alone, and the run ends (a stop prints the
+    threads' stacks and ends the process)."""
+    from bzip2_tpu_torch.tools import bwt_stress
+    out = bwt_stress.main(["--threads", "2", "--seconds", "15",
+                           "--hang-after", "120"])
+    assert out["calls"] > 40 and out["mismatches"] == 0 and not out["errors"]
