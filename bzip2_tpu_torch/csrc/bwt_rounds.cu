@@ -6,17 +6,18 @@
 // and their _gapped_rerank (:86) and _scatter_rank (:105); none has a
 // Pallas original.  Run as Python loops, each loop test was a host sync.
 // Here each stage's loop is one CUDA graph with lax.while_loop's
-// semantics: a gate kernel node runs the loop test and sets the graph's
-// conditional handle, then a conditional WHILE node runs one round (this
-// file's kernels and sort_pairs.cu's, captured from ops/bwt.py's calls on
-// a private stream) and the gate again, until the test fails.  ops/bwt.py
-// captures one such graph a stage once for each (stream, N) plan and
-// launches it at every call, with no host sync; no round runs past the
-// test.
+// semantics: a gate kernel node runs the loop test at the stage's entry
+// and sets the graph's conditional handle, then a conditional WHILE node
+// runs one round (this file's kernels and sort_pairs.cu's, captured from
+// ops/bwt.py's calls on a private stream) until the test fails.  The test
+// after a round is not a node of its own: the round's last kernel runs it
+// in the CTA that finishes last.  ops/bwt.py captures one such graph a
+// stage once for each (stream, N) plan and launches it at every call, with
+// no host sync; no round runs past the test.
 //
 // ctl, the loop's state on the card: ctl[0] the gate (the last loop
 // test), ctl[1] k (the prefix length the ranks resolve), ctl[2] the rows
-// of the round record written.  In a loop graph the gate also counts the
+// of the round record written.  In a loop graph the test also counts the
 // stage's entries and rounds on the card (cnt), from which the port counts
 // the launches of the kernels inside the graph (ops/bwt_kernel.py).
 //
@@ -34,23 +35,49 @@
 //     the singleton flag, the scatter of both through the sorted order (a
 //     permutation, so no write conflicts) and each row's count of tied
 //     positions.  Also the 16-byte initial ranks, on two int64 key columns.
+//     Two passes: a tile's last class start, then each tile takes the max
+//     of the tiles before it as its carry and scans its 4096 entries in
+//     shared memory.  In a round it ends with the loop test.
 //   * tail rerank: the same on a compact buffer with two running maxes
 //     (segment and sub-class starts), written back in place, and the
-//     scatter of the new ranks into rankD (dead lanes skip it).
+//     scatter of the new ranks into rankD (dead lanes skip it), in one pass
+//     with a decoupled look-back for the carry (below); it ends with the
+//     loop test.
 //   * gate: k < N && any(unres > thresh), after doubling k when a round ran;
 //     it appends (stage, k, unres per row) to the round record and, inside
 //     a loop graph, sets the WHILE node's handle.
 //
-// The running max across a row of up to 2^20 entries is two passes: a
-// tile's last class start (scan kernels), then each tile takes the max of
-// the tiles before it as its carry and scans its 4096 entries in shared
-// memory (scatter kernels).  The per-row counts are block sums added with
-// one atomic a CTA; the scan pass clears them in the same round.
+// The tail rerank in one pass (Merrill and Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back", 2016).  A CTA takes its tile from
+// a ticket counter, so every tile it waits on took its ticket earlier and
+// is running: the look-back cannot deadlock.  Each warp reads its 256
+// entries of the sorted pair once, 32 at a time into registers (coalesced),
+// and its segment and sub-class starts are ballots: a running max of "a
+// start here ? j" is the highest set bit at or below the lane, or the carry.
+// The carry across tiles is a max, which is idempotent, and a tile that
+// holds a segment start knows its final value at once (no start before it
+// can be larger), so it publishes it as final; any other tile publishes its
+// aggregate, looks back over its predecessors a warp at a time (32 status
+// words a step) until one is final, and then publishes its own final
+// value.  Each status word carries the launch's epoch (scratch), which the
+// last CTA raises, so a word left by an earlier launch never reads as this
+// one's.  The row counts go to a scratch sum a row; the last CTA moves them
+// to unres, leaves the sums and tickets at zero for the next launch, and
+// runs the loop test.  The stage loops keep rankD[p] == r1 at every live
+// entry (a compaction takes r1 from rankD's positions, a round writes both),
+// so a live entry whose rank does not change (the first sub-class of its
+// segment) is not written again: a random 4-byte write costs a 32-byte
+// sector, and the scatter is most of the kernel's time (in the first tail
+// round of chip_smoke.py's first -9 batch 41% of the live entries keep
+// their rank).  Tiles of 2048 entries and at most 40 registers a thread
+// (six CTAs an SM) keep that round's 832 CTAs close to one wave.
 // What bounds it: device-memory traffic.  A full-width round reads rank
 // twice (4 B at i and 4 B at (i + k) mod n, both runs of consecutive
 // positions), writes the pair (8 B), reads the sorted pair twice (16 B)
 // and scatters rank and the tied flag to random positions (a 32-byte
-// sector each).
+// sector each); a tail round reads its sorted pair once, writes p, r1 and
+// the flag, and scatters a live entry's new rank into rankD where it
+// changes (a sector each).
 #include "common.cuh"
 
 namespace {
@@ -64,6 +91,16 @@ constexpr int kTile = kThreads * kItems;        // sorted entries a CTA
 constexpr int kKeyCtas = 160;                   // keys CTAs a row, at most
 constexpr int kMirror = 2048;                   // the JAX pad mirror's width
 constexpr int kWarps = kThreads / 32;
+constexpr int kTailTile = 2048;                 // compact entries a CTA
+constexpr int kTailCtas = 6;                    // tail CTAs an SM, at least
+constexpr int kSpan = kTailTile / kWarps;       // a tail warp's entries
+constexpr int kSteps = kSpan / 32;              // ... 32 at a time
+// the tail rerank's scratch after its status words: the tile tickets, the
+// CTAs done, the launch epoch, a spare word, then a sum a row
+constexpr int kTicket = 0, kDone = 1, kEpoch = 2, kCtrl = 4;
+// a tail tile's status word: epoch (20 bits) | flag (2) | seg + 1 (21) |
+// sub + 1 (21); flag 0: not written in this launch
+constexpr unsigned kAggregate = 1, kFinal = 2, kEpochMask = 0xFFFFF;
 
 // The block's max of v, in every thread.  s: kWarps ints.
 __device__ __forceinline__ int block_max(int v, int* s) {
@@ -105,6 +142,58 @@ __device__ __forceinline__ int block_exclusive_max(int v, int* s) {
   for (int i = 0; i < w; ++i) excl = max(excl, s[i]);
   __syncthreads();
   return excl;
+}
+
+// ----------------------------------------------------------- loop test --
+
+// What the loop test needs besides unres: ctl (null: no test), the round
+// record (rec_rows rows of B + 2 int32, or null), the stage's entry and
+// round counts (cnt, two int32, or null) and the loop graph's handle.
+struct LoopTest {
+  int* ctl;
+  int* rec;
+  int* cnt;
+  int thresh, stage, rec_rows, has_cond;
+  cudaGraphConditionalHandle cond;
+};
+
+// The loop test, run by every thread of one CTA.  mode 0: the test at a
+// stage's entry; 1: the same, after appending (stage, k, unres) to the
+// record (the initial ranks); 2: after a round: k *= 2, append to the
+// record, then the test.  With has_cond the result also goes to the loop
+// graph's handle; with cnt, the call adds one to cnt[0] (an entry) or
+// cnt[1] (a round).  unres is read from L2: in a round's last CTA the
+// other CTAs added to it with atomics.
+__device__ void loop_test(const LoopTest& t, const int* unres, int B, int N,
+                          int mode) {
+  __shared__ int s_any;
+  int* ctl = t.ctl;
+  const int k = mode == 2 ? (int)((unsigned)ctl[kK] * 2u) : ctl[kK];
+  const int row = ctl[kRows];
+  const bool keep = mode != 0 && t.rec != nullptr && row < t.rec_rows;
+  int* out = t.rec + (long long)row * (B + 2);
+  if (threadIdx.x == 0) s_any = 0;
+  __syncthreads();
+  int any = 0;
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    const int u = __ldcg(unres + b);
+    any |= u > t.thresh;
+    if (keep) out[2 + b] = u;
+  }
+  if (__any_sync(kFullMask, any) && (threadIdx.x & 31) == 0) s_any = 1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (keep) {
+      out[0] = t.stage;
+      out[1] = k;
+      ctl[kRows] = row + 1;
+    }
+    const int go = k < N && s_any;
+    ctl[kK] = k;
+    ctl[kGate] = go;
+    if (t.has_cond) cudaGraphSetConditional(t.cond, go ? 1u : 0u);
+    if (t.cnt != nullptr) t.cnt[mode == 2 ? 1 : 0] += 1;
+  }
 }
 
 // ---------------------------------------------------------------- keys --
@@ -221,7 +310,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Pass 2: the gapped rank of each sorted entry (its class's first sorted
-// index), scattered with the tie flag to the entry's position.
+// index), scattered with the tie flag to the entry's position.  With a
+// test (test.ctl set), the CTA that finishes last runs the loop test after
+// the round (done: the CTAs done, zero before and after a launch).
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
     rerank_scatter_kernel(const void* ka, const void* kb,
@@ -230,10 +321,12 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ tile_last,
                           int* __restrict__ rank,
                           unsigned char* __restrict__ tied,
-                          int* __restrict__ unres) {
+                          int* __restrict__ unres, int* done,
+                          LoopTest test) {
   __shared__ unsigned char s_flag[kTile + 1];
   __shared__ int s_start[kTile];
   __shared__ int s_red[kWarps];
+  __shared__ int s_last;
   const int b = blockIdx.y, t = blockIdx.x;
   const long long off = (long long)b * ld;
   const int base = t * kTile;
@@ -279,165 +372,272 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   cnt = block_sum(cnt, s_red);
-  if (threadIdx.x == 0 && cnt) atomicAdd(unres + b, cnt);
+  if (threadIdx.x == 0) {
+    if (cnt) atomicAdd(unres + b, cnt);
+    if (test.ctl != nullptr) {
+      __threadfence();
+      s_last = atomicAdd(done, 1) == (int)(gridDim.x * gridDim.y) - 1;
+    }
+  }
+  if (test.ctl == nullptr) return;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *done = 0;
+  loop_test(test, unres, (int)gridDim.y, N, 2);
 }
 
 // --------------------------------------------------------- tail rerank --
 
-// Segment start (r1 = A >> 11 changes) and sub-class start ((A, B >> 20)
-// changes) of sorted entry j of a row.
-__device__ __forceinline__ int tail_flags(const int* a, const int* bb, int j,
-                                          int C) {
-  if (j >= C || j == 0) return 3;
-  const int a0 = a[j - 1], a1 = a[j];
-  const bool seg = (a1 >> 11) != (a0 >> 11);
-  const bool sub = seg || a1 != a0 || (bb[j] >> 20) != (bb[j - 1] >> 20);
-  return (int)seg | ((int)sub << 1);
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-// Pass 1: each tile's last segment and sub-class start (tile_last
-// (B, tiles, 2)); clears the row's count.
-__global__ void __launch_bounds__(kThreads)
-    tail_scan_kernel(const int* __restrict__ As, const int* __restrict__ Bs,
-                     int C, int* __restrict__ tile_last,
-                     int* __restrict__ unres) {
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long tile_status(unsigned epoch,
+                                                          unsigned flag,
+                                                          int seg, int sub) {
+  return ((unsigned long long)(epoch & kEpochMask) << 44) |
+         ((unsigned long long)flag << 42) |
+         ((unsigned long long)(seg + 1) << 21) | (unsigned long long)(sub + 1);
+}
+
+// The highest index of a set bit of m at or below lane (offset j0), else
+// carry.
+__device__ __forceinline__ int last_start(unsigned m, int lane, int j0,
+                                          int carry) {
+  const unsigned upto = m & (kFullMask >> (31 - lane));
+  return upto ? j0 + 31 - __clz(upto) : carry;
+}
+
+// One tail round's rerank after its sort: new ranks r1 + (sub-class start
+// - segment start), the unresolved flags and positions written back to
+// the compact buffer in place, the new ranks scattered into rankD where
+// they change, the per-row counts into unres, and (test.ctl set) the loop
+// test.  Grid: B * tiles CTAs, a tile each by ticket.  status: a word
+// a tile; ctrl: the tickets, CTAs done, epoch; sums: a count a row.
+__global__ void __launch_bounds__(kThreads, kTailCtas)
+    tail_rerank_kernel(const int* __restrict__ As, const int* __restrict__ Bs,
+                       int B, int N, int C, int tiles,
+                       unsigned long long* status, int* ctrl, int* sums,
+                       int* __restrict__ rankD, int* __restrict__ p,
+                       int* __restrict__ r1,
+                       unsigned char* __restrict__ unresolved,
+                       int* __restrict__ unres, LoopTest test) {
+  __shared__ unsigned s_seg[kWarps][kSteps], s_sub[kWarps][kSteps];
+  __shared__ int s_wseg[kWarps], s_wsub[kWarps];
   __shared__ int s_red[kWarps];
-  const int b = blockIdx.y, t = blockIdx.x;
-  const int* a = As + (long long)b * C;
-  const int* bb = Bs + (long long)b * C;
-  const int base = t * kTile;
-  int seg = -1, sub = -1;
-#pragma unroll 4
-  for (int r = 0; r < kItems; ++r) {
-    const int j = base + r * kThreads + threadIdx.x;
-    if (j < C) {
-      const int f = tail_flags(a, bb, j, C);
-      if (f & 1) seg = j;
-      if (f & 2) sub = j;
-    }
-  }
-  seg = block_max(seg, s_red);
-  sub = block_max(sub, s_red);
+  __shared__ int s_id, s_cseg, s_csub, s_last;
+  __shared__ unsigned s_epoch, s_after;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    int* tl = tile_last + ((long long)b * gridDim.x + t) * 2;
-    tl[0] = seg;
-    tl[1] = sub;
-    if (t == 0) unres[b] = 0;
+    s_id = atomicAdd(ctrl + kTicket, 1);
+    s_epoch = (unsigned)__ldcg(ctrl + kEpoch);
   }
-}
-
-// Pass 2: new ranks r1 + (sub start - segment start), the unresolved flags
-// and positions written back to the compact buffer in place, the new ranks
-// scattered into rankD at the live positions.
-__global__ void __launch_bounds__(kThreads)
-    tail_scatter_kernel(const int* __restrict__ As, const int* __restrict__ Bs,
-                        int N, int C, const int* __restrict__ tile_last,
-                        int* __restrict__ rankD, int* __restrict__ p,
-                        int* __restrict__ r1,
-                        unsigned char* __restrict__ unresolved,
-                        int* __restrict__ unres) {
-  __shared__ unsigned char s_flag[kTile + 1];
-  __shared__ int s_diff[kTile];
-  __shared__ int s_red[kWarps];
-  const int b = blockIdx.y, t = blockIdx.x;
+  __syncthreads();
+  const unsigned epoch = s_epoch;
+  const int b = s_id / tiles, t = s_id - b * tiles;
   const long long row = (long long)b * C;
   const int* a = As + row;
   const int* bb = Bs + row;
-  const int base = t * kTile;
-  int cseg = -1, csub = -1;
-  for (int i = threadIdx.x; i < t; i += kThreads) {
-    const int* tl = tile_last + ((long long)b * gridDim.x + i) * 2;
-    cseg = max(cseg, tl[0]);
-    csub = max(csub, tl[1]);
-  }
-  cseg = block_max(cseg, s_red);
-  csub = block_max(csub, s_red);
-  for (int l = threadIdx.x; l <= kTile; l += kThreads)
-    s_flag[l] = (unsigned char)tail_flags(a, bb, base + l, C);
-  __syncthreads();
-  const int d = threadIdx.x * kItems;
-  int rseg = -1, rsub = -1;
+  const int base = t * kTailTile;
+  const int wbase = base + w * kSpan;
+
+  // pass 1: the warp's entries in registers, their start flags as ballots
+  int va[kSteps], vb[kSteps];
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    if (s_flag[d + i] & 1) rseg = base + d + i;
-    if (s_flag[d + i] & 2) rsub = base + d + i;
+  for (int r = 0; r < kSteps; ++r) {
+    const int j = wbase + r * 32 + lane;
+    va[r] = j < C ? a[j] : kInf;
+    vb[r] = j < C ? bb[j] : 0;
   }
-  int seg = max(cseg, block_exclusive_max(rseg, s_red));
-  int sub = max(csub, block_exclusive_max(rsub, s_red));
+  int pa = 0, pb = 0;                 // the entry before the warp's first
+  if (wbase >= 1 && wbase <= C) {
+    pa = a[wbase - 1];
+    pb = bb[wbase - 1];
+  }
+  int wseg = -1, wsub = -1;
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    if (s_flag[d + i] & 1) seg = base + d + i;
-    if (s_flag[d + i] & 2) sub = base + d + i;
-    s_diff[d + i] = sub - seg;
+  for (int r = 0; r < kSteps; ++r) {
+    const int j0 = wbase + r * 32, j = j0 + lane;
+    int xa = __shfl_up_sync(kFullMask, va[r], 1);
+    int xb = __shfl_up_sync(kFullMask, vb[r], 1);
+    if (lane == 0) {
+      xa = pa;
+      xb = pb;
+    }
+    pa = __shfl_sync(kFullMask, va[r], 31);
+    pb = __shfl_sync(kFullMask, vb[r], 31);
+    bool seg = true, sub = true;      // past C and at 0 a class starts
+    if (j < C && j > 0) {
+      seg = (va[r] >> 11) != (xa >> 11);
+      sub = seg || va[r] != xa || (vb[r] >> 20) != (xb >> 20);
+    }
+    const unsigned ms = __ballot_sync(kFullMask, seg);
+    const unsigned mu = __ballot_sync(kFullMask, sub);
+    if (lane == 0) {
+      s_seg[w][r] = ms;
+      s_sub[w][r] = mu;
+    }
+    if (ms) wseg = j0 + 31 - __clz(ms);
+    if (mu) wsub = j0 + 31 - __clz(mu);
+  }
+  if (lane == 0) {
+    s_wseg[w] = wseg;
+    s_wsub[w] = wsub;
+  }
+  if (threadIdx.x == kThreads - 1) {  // the entry after the tile
+    const int j = base + kTailTile;
+    s_after = j >= C || a[j] != va[kSteps - 1] ||
+              (bb[j] >> 20) != (vb[kSteps - 1] >> 20);
   }
   __syncthreads();
+
+  // the tile's carry: the max of the earlier tiles' last starts
+  if (w == 0) {
+    int aseg = -1, asub = -1;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      aseg = max(aseg, s_wseg[i]);
+      asub = max(asub, s_wsub[i]);
+    }
+    unsigned long long* st = status + (long long)b * tiles;
+    // a segment start in the tile: its sub-class start is one too, and no
+    // start before the tile is larger, so both values are final
+    if (lane == 0)
+      store_release(st + t,
+                    tile_status(epoch, aseg >= 0 ? kFinal : kAggregate, aseg,
+                                asub));
+    int cseg = -1, csub = -1;
+    for (int top = t; top > 0; top -= 32) {
+      const int i = top - 1 - lane;
+      int vseg = -1, vsub = -1;
+      bool stop = true;
+      if (i >= 0) {
+        unsigned long long v;
+        do {
+          v = load_acquire(st + i);
+        } while ((unsigned)(v >> 44) != (epoch & kEpochMask) ||
+                 ((v >> 42) & 3) == 0);
+        vseg = (int)((v >> 21) & 0x1FFFFF) - 1;
+        vsub = (int)(v & 0x1FFFFF) - 1;
+        stop = ((v >> 42) & 3) == kFinal || vseg >= 0;
+      }
+      // fold the predecessors up to the nearest final one
+      const unsigned sm = __ballot_sync(kFullMask, stop);
+      const int upto = sm ? __ffs(sm) - 1 : 31;
+      if (lane <= upto) {
+        cseg = max(cseg, vseg);
+        csub = max(csub, vsub);
+      }
+      if (sm) break;
+    }
+    cseg = __reduce_max_sync(kFullMask, cseg);
+    csub = __reduce_max_sync(kFullMask, csub);
+    if (lane == 0) {
+      if (aseg < 0)
+        store_release(st + t, tile_status(epoch, kFinal, cseg,
+                                          max(csub, asub)));
+      s_cseg = cseg;
+      s_csub = csub;
+    }
+  }
+  __syncthreads();
+
+  // pass 2: each entry's segment and sub-class start, its new rank and
+  // flag, written in place and scattered
+  int seg = s_cseg, sub = s_csub;
+  for (int i = 0; i < w; ++i) {
+    seg = max(seg, s_wseg[i]);
+    sub = max(sub, s_wsub[i]);
+  }
   int* rd = rankD + (long long)b * (N + 1);
   int cnt = 0;
-#pragma unroll 4
-  for (int r = 0; r < kItems; ++r) {
-    const int l = r * kThreads + threadIdx.x;
-    const int j = base + l;
+#pragma unroll
+  for (int r = 0; r < kSteps; ++r) {
+    const int j0 = wbase + r * 32, j = j0 + lane;
+    const unsigned ms = s_seg[w][r], mu = s_sub[w][r];
+    // the next entry's sub-class flag: the next lane's, or the first of
+    // the next 32
+    const unsigned nb = r + 1 < kSteps ? s_sub[w][r + 1]
+                        : w + 1 < kWarps ? s_sub[w + 1][0]
+                                         : s_after;
+    const unsigned nxt = (mu >> 1) | ((nb & 1u) << 31);
     if (j < C) {
-      const int aj = a[j];
+      const int aj = va[r];
       const bool live = aj != kInf;
-      const int nr = (aj >> 11) + s_diff[l];
-      const bool un = !((s_flag[l] & 2) && (s_flag[l + 1] & 2)) && live;
-      const int pos = bb[j] & kP20;
+      const int nr = (aj >> 11) + (last_start(mu, lane, j0, sub) -
+                                   last_start(ms, lane, j0, seg));
+      const bool un = !((mu >> lane) & (nxt >> lane) & 1u) && live;
+      const int pos = vb[r] & kP20;
       p[row + j] = live ? pos : -1;
       r1[row + j] = live ? nr : kInf;
       unresolved[row + j] = un;
-      if (live) rd[pos] = nr;
+      // rankD holds r1 at a live entry's position already: only a rank
+      // that changes is written
+      if (live && nr != (aj >> 11)) rd[pos] = nr;
       cnt += un;
     }
+    if (ms) seg = j0 + 31 - __clz(ms);
+    if (mu) sub = j0 + 31 - __clz(mu);
   }
   cnt = block_sum(cnt, s_red);
-  if (threadIdx.x == 0 && cnt) atomicAdd(unres + b, cnt);
+  if (threadIdx.x == 0) {
+    if (cnt) atomicAdd(sums + b, cnt);
+    __threadfence();
+    s_last = atomicAdd(ctrl + kDone, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the last CTA: every other one is done
+  __threadfence();
+  for (int i = threadIdx.x; i < B; i += kThreads)
+    unres[i] = atomicExch(sums + i, 0);
+  if (threadIdx.x == 0) {
+    ctrl[kTicket] = 0;
+    ctrl[kDone] = 0;
+    ctrl[kEpoch] = (int)(epoch + 1);
+  }
+  if (test.ctl != nullptr) {
+    __syncthreads();
+    loop_test(test, unres, B, N, 2);
+  }
 }
 
 // ---------------------------------------------------------------- gate --
 
-// mode 0: the loop test at a stage's entry; 1: the same, after appending
-// (stage, k, unres) to the record (the initial ranks); 2: after a round:
-// k *= 2, append to the record, then the loop test.  With has_cond, the
-// test's result also goes to the loop graph's handle; with cnt, the call
-// adds one to cnt[0] (an entry) or cnt[1] (a round).
 __global__ void __launch_bounds__(kThreads)
-    gate_kernel(int* ctl, const int* __restrict__ unres, int* __restrict__ rec,
-                int* __restrict__ cnt, int B, int N, int thresh, int stage,
-                int rec_rows, int mode, cudaGraphConditionalHandle cond,
-                int has_cond) {
-  __shared__ int s_any;
-  const int k = mode == 2 ? ctl[kK] * 2 : ctl[kK];
-  const int row = ctl[kRows];
-  const bool keep = mode != 0 && rec != nullptr && row < rec_rows;
-  int* out = rec + (long long)row * (B + 2);
-  if (threadIdx.x == 0) s_any = 0;
-  __syncthreads();
-  int any = 0;
-  for (int b = threadIdx.x; b < B; b += kThreads) {
-    const int u = unres[b];
-    any |= u > thresh;
-    if (keep) out[2 + b] = u;
-  }
-  if (__any_sync(kFullMask, any) && (threadIdx.x & 31) == 0) s_any = 1;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (keep) {
-      out[0] = stage;
-      out[1] = k;
-      ctl[kRows] = row + 1;
-    }
-    const int go = k < N && s_any;
-    ctl[kK] = k;
-    ctl[kGate] = go;
-    if (has_cond) cudaGraphSetConditional(cond, go ? 1u : 0u);
-    if (cnt != nullptr) cnt[mode == 2 ? 1 : 0] += 1;
-  }
+    gate_kernel(LoopTest test, const int* __restrict__ unres, int B, int N,
+                int mode) {
+  loop_test(test, unres, B, N, mode);
 }
 
 unsigned key_ctas(int width) {
   const int ctas = (width + kThreads - 1) / kThreads;
   return (unsigned)(ctas < kKeyCtas ? ctas : kKeyCtas);
+}
+
+LoopTest loop_test_args(int* ctl, int* rec, int* cnt, int thresh, int stage,
+                        int rec_rows, unsigned long long cond, int has_cond) {
+  LoopTest t;
+  t.ctl = ctl;
+  t.rec = rec;
+  t.cnt = cnt;
+  t.thresh = thresh;
+  t.stage = stage;
+  t.rec_rows = rec_rows;
+  t.has_cond = has_cond;
+  t.cond = (cudaGraphConditionalHandle)cond;
+  return t;
 }
 
 }  // namespace
@@ -467,28 +667,36 @@ BZ2T_API int bz2t_bwt_keys(const int* rank, const int* p, const int* r1,
 // int64 key columns ka, kb and an int64 order (wide, the 16-byte ranks),
 // or of a round's sorted int32 (A, B) pair in ka, kb (order null).  Writes
 // rank (B, N) int32 and tied (B, N) bool at every position and unres (B,)
-// int32; tile_last: (B, ceil(S / 4096)) int32 scratch.
+// int32; scratch: B * ceil(S / 4096) + 1 int32, its last word zero.  With
+// ctl (the loop test after a round: rec, cnt, thresh, stage, rec_rows,
+// cond and has_cond as for bz2t_bwt_gate), the CTA that finishes last runs
+// it.
 BZ2T_API int bz2t_bwt_rerank(const void* ka, const void* kb,
                              const long long* order, const int* n,
-                             int* tile_last, int* rank,
-                             unsigned char* tied, int* unres, int wide, int B,
-                             int N, int S, int ld, void* stream) {
+                             int* scratch, int* rank, unsigned char* tied,
+                             int* unres, int wide, int B, int N, int S,
+                             int ld, int* ctl, int* rec, int* cnt, int thresh,
+                             int stage, int rec_rows, unsigned long long cond,
+                             int has_cond, void* stream) {
   if (B < 1 || S < 1 || S > N || ld < S || (wide && order == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((unsigned)((S + kTile - 1) / kTile), (unsigned)B);
+  int* done = scratch + (long long)grid.x * B;
+  const LoopTest test = loop_test_args(ctl, rec, cnt, thresh, stage,
+                                       rec_rows, cond, has_cond);
   if (wide) {
     rerank_scan_kernel<true><<<grid, kThreads, 0, st>>>(ka, kb, ld, S,
-                                                         tile_last, unres);
+                                                         scratch, unres);
     BZ2T_CHECK_LAUNCH();
     rerank_scatter_kernel<true><<<grid, kThreads, 0, st>>>(
-        ka, kb, order, ld, S, N, n, tile_last, rank, tied, unres);
+        ka, kb, order, ld, S, N, n, scratch, rank, tied, unres, done, test);
   } else {
     rerank_scan_kernel<false><<<grid, kThreads, 0, st>>>(ka, kb, ld, S,
-                                                          tile_last, unres);
+                                                          scratch, unres);
     BZ2T_CHECK_LAUNCH();
     rerank_scatter_kernel<false><<<grid, kThreads, 0, st>>>(
-        ka, kb, nullptr, ld, S, N, n, tile_last, rank, tied, unres);
+        ka, kb, nullptr, ld, S, N, n, scratch, rank, tied, unres, done, test);
   }
   BZ2T_CHECK_LAUNCH();
   return 0;
@@ -496,24 +704,31 @@ BZ2T_API int bz2t_bwt_rerank(const void* ka, const void* kb,
 
 // A tail round's rerank from its sorted (As, Bs) (B, C): p, r1 (B, C)
 // int32 and unresolved (B, C) bool in place, rankD (B, N + 1) at the live
-// positions, unres (B,); tile_last: (B, ceil(C / 4096), 2) int32 scratch.
+// positions, unres (B,); scratch: 2 * B * ceil(C / 2048) + 4 + B int32,
+// zero before the first launch (each launch leaves it ready for the
+// next).  With ctl, the loop test after the round (as bz2t_bwt_rerank).
 BZ2T_API int bz2t_bwt_tail_rerank(const int* As, const int* Bs,
-                                  int* tile_last, int* rankD,
-                                  int* p, int* r1, unsigned char* unresolved,
-                                  int* unres, int B, int N, int C,
-                                  void* stream) {
-  if (B < 1 || C < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((C + kTile - 1) / kTile), (unsigned)B);
-  tail_scan_kernel<<<grid, kThreads, 0, st>>>(As, Bs, C, tile_last, unres);
-  BZ2T_CHECK_LAUNCH();
-  tail_scatter_kernel<<<grid, kThreads, 0, st>>>(
-      As, Bs, N, C, tile_last, rankD, p, r1, unresolved, unres);
+                                  int* scratch, int* rankD, int* p, int* r1,
+                                  unsigned char* unresolved, int* unres,
+                                  int B, int N, int C, int* ctl, int* rec,
+                                  int* cnt, int thresh, int stage,
+                                  int rec_rows, unsigned long long cond,
+                                  int has_cond, void* stream) {
+  if (B < 1 || C < 1 || N < 1 || C > (1 << 20) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (C + kTailTile - 1) / kTailTile;
+  const long long words = (long long)B * tiles;
+  int* ctrl = scratch + 2 * words;
+  tail_rerank_kernel<<<(unsigned)words, kThreads, 0, (cudaStream_t)stream>>>(
+      As, Bs, B, N, C, tiles, (unsigned long long*)scratch, ctrl,
+      ctrl + kCtrl, rankD, p, r1, unresolved, unres,
+      loop_test_args(ctl, rec, cnt, thresh, stage, rec_rows, cond,
+                     has_cond));
   BZ2T_CHECK_LAUNCH();
   return 0;
 }
 
-// The loop test (see gate_kernel for the modes); rec: (rec_rows, B + 2)
+// The loop test (see loop_test for the modes); rec: (rec_rows, B + 2)
 // int32 or null; cnt: two int32 (entries, rounds) or null; has_cond: set
 // the loop graph's handle cond too.
 BZ2T_API int bz2t_bwt_gate(int* ctl, const int* unres, int* rec, int* cnt,
@@ -523,26 +738,26 @@ BZ2T_API int bz2t_bwt_gate(int* ctl, const int* unres, int* rec, int* cnt,
   if (ctl == nullptr || B < 1 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   gate_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      ctl, unres, rec, cnt, B, N, thresh, stage, rec_rows, mode,
-      (cudaGraphConditionalHandle)cond, has_cond);
+      loop_test_args(ctl, rec, cnt, thresh, stage, rec_rows, cond, has_cond),
+      unres, B, N, mode);
   BZ2T_CHECK_LAUNCH();
   return 0;
 }
 
 // ---------------------------------------------------------------- loop --
 //
-// One stage's loop as a graph [entry gate] -> WHILE(cond) { round; gate },
-// built and instantiated by one call, bz2t_bwt_loop_build, which captures
-// the launches of this file's entry points and of bz2t_sort_pairs on a
-// capture stream.  The capture runs in C from start to end, so no other
-// host thread's work (Python's, say) has to run for it to finish.  A
-// device-wide synchronize or free by another thread while it runs
-// invalidates it (the call then returns cudaErrorStreamCaptureInvalidated
-// and may be made again).  ops/bwt.py keeps the graph with the buffers it
-// was built on and launches it at every call that has them.  Launching
-// waits for nothing; instantiating a graph with a conditional node and
-// destroying one wait for the card, so they are done only when a plan is
-// made or dropped.
+// One stage's loop as a graph [entry gate] -> WHILE(cond) { round }, the
+// round ending in the loop test, built and instantiated by one call,
+// bz2t_bwt_loop_build, which captures the launches of this file's entry
+// points and of bz2t_sort_pairs on a capture stream.  The capture runs in C
+// from start to end, so no other host thread's work (Python's, say) has to
+// run for it to finish.  A device-wide synchronize or free by another
+// thread while it runs invalidates it (the call then returns
+// cudaErrorStreamCaptureInvalidated and may be made again).  ops/bwt.py
+// keeps the graph with the buffers it was built on and launches it at
+// every call that has them.  Launching waits for nothing; instantiating a
+// graph with a conditional node and destroying one wait for the card, so
+// they are done only when a plan is made or dropped.
 
 BZ2T_API int bz2t_sort_pairs(const int* a, const int* b, int* a_out,
                              int* b_out, uint64_t* k0, uint64_t* k1, int rows,
@@ -561,20 +776,26 @@ namespace {
 
 // The round of a loop graph: a full-width round (p null: keys from rank,
 // sort, rerank into rank and tied) or a tail round (keys from rankD, p and
-// r1, sort, tail rerank into rankD, p, r1 and unresolved).
-int launch_round(cudaStream_t st, int* ctl, int* unres, int B, int N,
-                 int* rank, int* p, int* r1, const int* n, int* A, int* Bv,
-                 int C, int ld, int* sa, int* sb, uint64_t* k0, uint64_t* k1,
-                 int sort_n, int sort_tile, int* tiles, unsigned char* flags) {
+// r1, sort, tail rerank into rankD, p, r1 and unresolved); the rerank ends
+// with the loop test, which sets the handle h.
+int launch_round(cudaStream_t st, int* ctl, int* unres, int* rec, int* cnt,
+                 int B, int N, int thresh, int stage, int rec_rows,
+                 cudaGraphConditionalHandle h, int* rank, int* p, int* r1,
+                 const int* n, int* A, int* Bv, int C, int ld, int* sa,
+                 int* sb, uint64_t* k0, uint64_t* k1, int sort_n,
+                 int sort_tile, int* scratch, unsigned char* flags) {
   int e = bz2t_bwt_keys(rank, p, r1, n, ctl, A, Bv, B, N, C, ld, st);
   if (e == 0) e = bz2t_sort_pairs(A, Bv, sa, sb, k0, k1, B, sort_n,
                                   sort_tile, st);
   if (e != 0) return e;
+  const unsigned long long cond = (unsigned long long)h;
   if (p == nullptr)
-    return bz2t_bwt_rerank(sa, sb, nullptr, n, tiles, rank, flags, unres, 0,
-                           B, N, N, sort_n, st);
-  return bz2t_bwt_tail_rerank(sa, sb, tiles, rank, p, r1, flags, unres, B,
-                              N, C, st);
+    return bz2t_bwt_rerank(sa, sb, nullptr, n, scratch, rank, flags, unres,
+                           0, B, N, N, sort_n, ctl, rec, cnt, thresh, stage,
+                           rec_rows, cond, 1, st);
+  return bz2t_bwt_tail_rerank(sa, sb, scratch, rank, p, r1, flags, unres, B,
+                              N, C, ctl, rec, cnt, thresh, stage, rec_rows,
+                              cond, 1, st);
 }
 
 // Ends the capture on st if one is open, and drops what it made.
@@ -595,14 +816,15 @@ int abandon(cudaStream_t st, cudaGraph_t g, int e) {
 
 // Builds and instantiates one stage's loop graph on the capture stream
 // cap: the gate (entry mode entry_mode) at the entry, then a WHILE node
-// whose body is one round (launch_round's arguments) and the gate after a
-// round.  The gates count entries and rounds in cnt (two int32).  Writes
-// the graph and its executable to *graph, *exec.
+// whose body is one round (launch_round's arguments) ending in the loop
+// test.  The entry gate counts the entries in cnt[0], the round's last
+// kernel the rounds in cnt[1].  Writes the graph and its executable to
+// *graph, *exec.
 BZ2T_API int bz2t_bwt_loop_build(
     void* cap, int* ctl, int* unres, int* rec, int* cnt, int B, int N,
     int thresh, int stage, int rec_rows, int entry_mode, int* rank, int* p,
     int* r1, const int* n, int* A, int* Bv, int C, int ld, int* sa, int* sb,
-    uint64_t* k0, uint64_t* k1, int sort_n, int sort_tile, int* tiles,
+    uint64_t* k0, uint64_t* k1, int sort_n, int sort_tile, int* scratch,
     unsigned char* flags, void** graph, void** exec) {
   if (entry_mode < 0 || entry_mode > 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)cap;
@@ -639,11 +861,9 @@ BZ2T_API int bz2t_bwt_loop_build(
                                        nullptr, nullptr, 0,
                                        cudaStreamCaptureModeRelaxed);
   if (ce != cudaSuccess) return abandon(st, g, (int)ce);
-  e = launch_round(st, ctl, unres, B, N, rank, p, r1, n, A, Bv, C, ld, sa, sb,
-                   k0, k1, sort_n, sort_tile, tiles, flags);
-  if (e == 0)
-    e = bz2t_bwt_gate(ctl, unres, rec, cnt, B, N, thresh, stage, rec_rows, 2,
-                      h, 1, st);
+  e = launch_round(st, ctl, unres, rec, cnt, B, N, thresh, stage, rec_rows, h,
+                   rank, p, r1, n, A, Bv, C, ld, sa, sb, k0, k1, sort_n,
+                   sort_tile, scratch, flags);
   cudaGraph_t body;
   ce = cudaStreamEndCapture(st, &body);
   if (e != 0 || ce != cudaSuccess) return abandon(st, g, e ? e : (int)ce);

@@ -127,9 +127,11 @@ class _Plan:
         Bv[:, N:].copy_((1 << 29) | torch.arange(N, NP, dtype=i32, device=dev))
         self.counts = (None if dev.type == "cpu" else
                        torch.zeros((len(ladder) + 1, 2), dtype=i32, device=dev))
+        # the rerank's scratch: the full-width rounds' and the 16-byte
+        # ranks'
+        self.scratch = bk.rerank_scratch(B, N, dev)
         full = bk.Round(self.rank, self.n, self.ctl, self.unres, A, Bv,
-                        sort_buffers(B, NP, dev), bk.rerank_tiles(B, N, dev),
-                        self.tied)
+                        sort_buffers(B, NP, dev), self.scratch, self.tied)
         self.loops = [bk.StageLoop(full, self.ctl, self.unres, self.rec, N,
                                    ladder[0], 0, bk.ENTRY_RECORD,
                                    self._counts(0))]
@@ -145,7 +147,7 @@ class _Plan:
                 self.rankD, self.n, self.ctl, self.unres,
                 torch.empty((B, C), dtype=i32, device=dev),
                 torch.empty((B, C), dtype=i32, device=dev),
-                sort_buffers(B, C, dev), bk.tail_tiles(B, C, dev), un, p, r1)
+                sort_buffers(B, C, dev), bk.tail_scratch(B, C, dev), un, p, r1)
             self.loops.append(bk.StageLoop(tail, self.ctl, self.unres,
                                            self.rec, N, cap, stage, bk.ENTRY,
                                            self._counts(stage)))
@@ -300,7 +302,8 @@ def _rounds_and_order(plan, bi, bx, n, valid, idx, hs, lo_s, order64):
     B, N = plan.rank.shape
     i32 = torch.int32
     plan.n.copy_(n)
-    bk.rerank(hs, lo_s, order64, plan.n, plan.rank, plan.tied, plan.unres)
+    bk.rerank(hs, lo_s, order64, plan.n, plan.rank, plan.tied, plan.unres,
+              scratch=plan.scratch)
     bk.reset_control(plan.ctl)
     plan.rec.zero_()
     ladder = _tail_ladder(N)

@@ -11,8 +11,10 @@ length the ranks resolve) and ``ctl[ROWS]`` (the rows of the round record
 written).  A round is :func:`keys` (a full-width or a tail round's pair),
 ``sort_kernel.sort_pairs``, then :func:`rerank` (full width, and for the
 16-byte initial ranks) or :func:`tail_rerank` (new ranks, tie flags and
-per-row counts, written in place); :func:`gate` runs the loop test
-``k < N and any(unres > thresh)`` after doubling k.
+per-row counts, written in place), which ends with the loop test
+``k < N and any(unres > thresh)`` after doubling k (a :class:`LoopTest`,
+run by the CTA that finishes last); :func:`gate` runs the test at a
+stage's entry.
 
 :func:`loop` runs one stage's :class:`StageLoop`: on a CUDA tensor the
 entry test and one :class:`Round`, built at its first run into a CUDA
@@ -20,9 +22,11 @@ graph whose conditional WHILE node repeats the round while the test holds
 (one C call captures it), are launched with no host sync; on the CPU it is
 a Python while loop over the plain versions that reads the gate on the
 host.  A wrapper runs its plain version only for a tensor on the CPU; for
-a CUDA tensor it launches its kernel.  Inside a graph the gate kernel counts the stage's entries and
-rounds on the card, and :meth:`StageLoop.fold` turns them into launches of
-the kernels the graph holds, one a round that ran.
+a CUDA tensor it launches its kernel.  Inside a graph the entry gate
+counts the stage's entries and the round's last kernel its rounds on the
+card, and :meth:`StageLoop.fold` turns them into launches of the kernels
+the graph holds: the gate once an entry, the round's kernels once a round
+that ran.
 
 The plain versions are the host-driven loop's bodies.  Neither route
 writes the JAX package's pad mirror (rank[0:2048] copied past each row's
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import ctypes as ct
 import threading
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,21 +54,27 @@ P20 = (1 << 20) - 1
 MIRROR = 2048
 #: sorted entries a CTA reranks; csrc/bwt_rounds.cu's kTile
 TILE = 4096
+#: compact entries a CTA of the tail rerank takes; its kTailTile
+TAIL_TILE = 2048
 #: ctl's fields
 GATE, K, ROWS = 0, 1, 2
 #: gate modes: the loop test at a stage's entry; the same after recording
-#: (stage, k, unres); after a round (k *= 2, record, test)
+#: (stage, k, unres); after a round (k *= 2, record, test: the round's last
+#: kernel runs it)
 ENTRY, ENTRY_RECORD, AFTER_ROUND = 0, 1, 2
 
 i32, i64 = torch.int32, torch.int64
 _P = ct.c_void_p
 
+#: the loop test's arguments after a round: ctl, rec, cnt, thresh, stage,
+#: rec_rows, the graph's handle, has_cond
+_TEST_ARGS = [_P] * 3 + [ct.c_int] * 3 + [ct.c_ulonglong, ct.c_int]
 KEYS = _build.Kernel("bwt_keys", "bz2t_bwt_keys",
                      [_P] * 7 + [ct.c_int] * 4 + [_P])
 RERANK = _build.Kernel("bwt_rerank", "bz2t_bwt_rerank",
-                       [_P] * 8 + [ct.c_int] * 5 + [_P])
+                       [_P] * 8 + [ct.c_int] * 5 + _TEST_ARGS + [_P])
 TAIL = _build.Kernel("bwt_tail_rerank", "bz2t_bwt_tail_rerank",
-                     [_P] * 8 + [ct.c_int] * 3 + [_P])
+                     [_P] * 8 + [ct.c_int] * 3 + _TEST_ARGS + [_P])
 GATE_K = _build.Kernel("bwt_gate", "bz2t_bwt_gate",
                        [_P] * 4 + [ct.c_int] * 6 + [ct.c_ulonglong, ct.c_int,
                                                     _P])
@@ -208,7 +219,9 @@ def tail_keys_plain(rankD, p, r1, n, k: int):
 def tail_rerank_plain(As, Bs, rankD):
     """A tail round after its sort: new ranks r1 + (sub-class start -
     segment start), written into rankD (in place) at the live positions.
-    Returns (p, r1, unresolved (B, C) bool, unres (B,) int32)."""
+    Returns (p, r1, unresolved (B, C) bool, unres (B,) int32).  (The kernel
+    writes only the ranks that change; the two agree where rankD holds r1
+    at each live entry's position, as the stage loops keep it.)"""
     B, C = As.shape
     jc = torch.arange(C, dtype=i32, device=As.device)[None, :]
     lives = As != INF
@@ -234,6 +247,17 @@ def loop_test_plain(k: int, unres, N: int, thresh: int) -> bool:
     """The while_loops' condition: k < N and some row has more than thresh
     positions still tied."""
     return k < N and bool((unres > thresh).any())
+
+
+class LoopTest(NamedTuple):
+    """The loop test a round's last kernel runs after the round (gate mode
+    ``AFTER_ROUND``): the loop's ctl, its round record ((rows, B + 2) int32,
+    or None), the threshold of unresolved positions and the stage
+    recorded.  The loop's N is the round's."""
+    ctl: torch.Tensor
+    rec: Optional[torch.Tensor]
+    thresh: int
+    stage: int
 
 
 def gate_plain(ctl, unres, rec, N: int, thresh: int, stage: int,
@@ -295,28 +319,56 @@ def keys(rank, n, ctl, A, Bv, p=None, r1=None) -> None:
          _build.stream_of(A))
 
 
-def rerank_tiles(B: int, N: int, device) -> torch.Tensor:
-    """The scratch of :func:`rerank` (each tile's last class start)."""
-    return torch.empty((B, -(-N // TILE)), dtype=i32, device=device)
+def rerank_scratch(B: int, N: int, device) -> torch.Tensor:
+    """The scratch of :func:`rerank`: each tile's last class start, then
+    the count of CTAs done, zero (each launch with a test leaves it so)."""
+    return torch.zeros(B * -(-N // TILE) + 1, dtype=i32, device=device)
 
 
-def tail_tiles(B: int, C: int, device) -> torch.Tensor:
-    """The scratch of :func:`tail_rerank`."""
-    return torch.empty((B, -(-C // TILE), 2), dtype=i32, device=device)
+def tail_scratch(B: int, C: int, device) -> torch.Tensor:
+    """The scratch of :func:`tail_rerank`: a 64-bit status word a tile,
+    then the tile tickets, the CTAs done, the launch epoch, a spare word
+    and a sum a row; zero at first, and each launch leaves it ready for
+    the next (tickets and sums zero, the epoch one up)."""
+    return torch.zeros(2 * B * -(-C // TAIL_TILE) + 4 + B, dtype=i32,
+                       device=device)
 
 
-def rerank(ka, kb, order, n, rank, tied, unres, tiles=None) -> None:
+def _test_args(test: Optional[LoopTest], B: int) -> list:
+    """The kernel arguments of the loop test after a round (none: no
+    test)."""
+    if test is None:
+        return [None, None, None, 0, 0, 0, 0, 0]
+    _checks((test.ctl, "bwt loop test ctl", i32, (3,)))
+    rows = 0
+    if test.rec is not None:
+        rows = test.rec.shape[0]
+        _checks((test.rec, "bwt loop test rec", i32, (rows, B + 2)))
+    return [_build.ptr(test.ctl), _build.ptr(test.rec), None, test.thresh,
+            test.stage, rows, 0, 0]
+
+
+def _test_plain(test: Optional[LoopTest], unres, N: int) -> None:
+    if test is not None:
+        gate_plain(test.ctl, unres, test.rec, N, test.thresh, test.stage,
+                   AFTER_ROUND)
+
+
+def rerank(ka, kb, order, n, rank, tied, unres, scratch=None,
+           test=None) -> None:
     """The rerank after a sort, into rank (B, N) int32, tied (B, N) bool and
     unres (B,) int32.  ka, kb, order: (B, N)
     int64 key columns and their order (the 16-byte ranks), or ka, kb a
-    round's sorted (A, B) int32 pair (B, ld >= N) and order None.  tiles:
-    ``rerank_tiles(B, N)``, or None to allocate it."""
+    round's sorted (A, B) int32 pair (B, ld >= N) and order None.  scratch:
+    ``rerank_scratch(B, N)``, or None to allocate it.  test: a
+    :class:`LoopTest` to run after the rerank, or None."""
     B, N = rank.shape
     if ka.device.type == "cpu":
         r, t, u = rerank_plain(ka, kb, order, n, N)
         rank.copy_(r)
         tied.copy_(t)
         unres.copy_(u)
+        _test_plain(test, unres, N)
         return
     wide = order is not None
     ld = ka.shape[1]
@@ -329,25 +381,30 @@ def rerank(ka, kb, order, n, rank, tied, unres, tiles=None) -> None:
         _checks((order, "bwt_rerank order", i64, (B, ld)))
     if ld < N:
         raise ValueError(f"bwt_rerank: keys of width {ld} for {N} positions")
-    if tiles is None:
-        tiles = rerank_tiles(B, N, rank.device)
-    _checks((tiles, "bwt_rerank tiles", i32, (B, -(-N // TILE))))
+    if scratch is None:
+        scratch = rerank_scratch(B, N, rank.device)
+    _checks((scratch, "bwt_rerank scratch", i32, (B * -(-N // TILE) + 1,)))
     RERANK(_build.ptr(ka), _build.ptr(kb), _build.ptr(order), _build.ptr(n),
-           _build.ptr(tiles), _build.ptr(rank),
+           _build.ptr(scratch), _build.ptr(rank),
            _build.ptr(tied), _build.ptr(unres), int(wide), B, N, N, ld,
-           _build.stream_of(rank))
+           *_test_args(test, B), _build.stream_of(rank))
 
 
-def tail_rerank(As, Bs, rankD, p, r1, unresolved, unres, tiles=None) -> None:
+def tail_rerank(As, Bs, rankD, p, r1, unresolved, unres, scratch=None,
+                test=None) -> None:
     """A tail round's rerank from its sorted (As, Bs) (B, C): p, r1,
     unresolved (B, C) and unres (B,) in place, rankD (B, N + 1) at the live
-    positions.  tiles: ``tail_tiles(B, C)``, or None."""
+    positions, then test (a :class:`LoopTest`, or None).  rankD must hold
+    r1 (As >> 11) at each live entry's position, as the stage loops keep
+    it: the kernel writes only the ranks that change.  scratch:
+    ``tail_scratch(B, C)`` (kept from launch to launch), or None."""
     if As.device.type == "cpu":
         ps, nr, un, u = tail_rerank_plain(As, Bs, rankD)
         p.copy_(ps)
         r1.copy_(nr)
         unresolved.copy_(un)
         unres.copy_(u)
+        _test_plain(test, unres, rankD.shape[1] - 1)
         return
     B, C = As.shape
     N = rankD.shape[1] - 1
@@ -358,20 +415,21 @@ def tail_rerank(As, Bs, rankD, p, r1, unresolved, unres, tiles=None) -> None:
             (r1, "bwt_tail_rerank r1", i32, (B, C)),
             (unresolved, "bwt_tail_rerank unresolved", torch.bool, (B, C)),
             (unres, "bwt_tail_rerank unres", i32, (B,)))
-    if tiles is None:
-        tiles = tail_tiles(B, C, As.device)
-    _checks((tiles, "bwt_tail_rerank tiles", i32, (B, -(-C // TILE), 2)))
-    TAIL(_build.ptr(As), _build.ptr(Bs), _build.ptr(tiles),
+    if scratch is None:
+        scratch = tail_scratch(B, C, As.device)
+    _checks((scratch, "bwt_tail_rerank scratch", i32,
+             (2 * B * -(-C // TAIL_TILE) + 4 + B,)))
+    TAIL(_build.ptr(As), _build.ptr(Bs), _build.ptr(scratch),
          _build.ptr(rankD), _build.ptr(p), _build.ptr(r1),
          _build.ptr(unresolved), _build.ptr(unres), B, N, C,
-         _build.stream_of(As))
+         *_test_args(test, B), _build.stream_of(As))
 
 
 def gate(ctl, unres, rec, N: int, thresh: int, stage: int, mode: int) -> None:
     """The loop test on the rows' device (see the modes above); rec:
     (rows, B + 2) int32 round record, or None.  (Inside a loop graph the
-    same kernel also sets the WHILE node's handle and counts the stage's
-    entries and rounds: ``bz2t_bwt_loop_build``.)"""
+    same kernel also sets the WHILE node's handle at the stage's entry and
+    counts the entries: ``bz2t_bwt_loop_build``.)"""
     if ctl.device.type == "cpu":
         gate_plain(ctl, unres, rec, N, thresh, stage, mode)
         return
@@ -412,28 +470,30 @@ class Round:
     """One doubling round on fixed buffers: a full-width round (p None:
     keys from rank, the sort, the rerank into rank and flags = tied) or a
     tail round (keys from rank = rankD, p and r1, the sort, the tail rerank
-    into rankD, p, r1 and flags = unresolved).  Calling it launches the
-    round through the wrappers (the CPU's loop, and a loop driven from the
-    host); on a card :func:`loop` builds the same launches into a graph in
-    one C call.  bufs: ``sort_buffers`` of the sort's width (A's)."""
+    into rankD, p, r1 and flags = unresolved), the rerank ending with the
+    loop test it is called with.  Calling it launches the round through the
+    wrappers (the CPU's loop, and a loop driven from the host); on a card
+    :func:`loop` builds the same launches into a graph in one C call.
+    bufs: ``sort_buffers`` of the sort's width (A's); scratch: the
+    rerank's (``rerank_scratch`` or ``tail_scratch``)."""
 
-    def __init__(self, rank, n, ctl, unres, A, Bv, bufs, tiles, flags,
+    def __init__(self, rank, n, ctl, unres, A, Bv, bufs, scratch, flags,
                  p=None, r1=None):
         self.rank, self.n, self.ctl, self.unres = rank, n, ctl, unres
-        self.A, self.Bv, self.bufs, self.tiles = A, Bv, bufs, tiles
+        self.A, self.Bv, self.bufs, self.scratch = A, Bv, bufs, scratch
         self.flags, self.p, self.r1 = flags, p, r1
         self.kernels = [KEYS, SORT, RERANK if p is None else TAIL]
 
-    def __call__(self) -> None:
+    def __call__(self, test: LoopTest) -> None:
         keys(self.rank, self.n, self.ctl, self.A, self.Bv, p=self.p,
              r1=self.r1)
         As, Bs = sort_pairs(self.A, self.Bv, bufs=self.bufs)
         if self.p is None:
             rerank(As, Bs, None, self.n, self.rank, self.flags, self.unres,
-                   tiles=self.tiles)
+                   scratch=self.scratch, test=test)
         else:
             tail_rerank(As, Bs, self.rank, self.p, self.r1, self.flags,
-                        self.unres, tiles=self.tiles)
+                        self.unres, scratch=self.scratch, test=test)
 
     def args(self) -> list:
         """The round's part of ``bz2t_bwt_loop_build``'s arguments, after
@@ -445,14 +505,15 @@ class Round:
         if self.p is None:
             _checks((self.rank, "bwt_loop rank", i32, (B, N)),
                     (self.flags, "bwt_loop tied", torch.bool, (B, N)),
-                    (self.tiles, "bwt_loop tiles", i32, (B, -(-N // TILE))))
+                    (self.scratch, "bwt_loop scratch", i32,
+                     (B * -(-N // TILE) + 1,)))
         else:
             _checks((self.rank, "bwt_loop rankD", i32, (B, N + 1)),
                     (self.p, "bwt_loop p", i32, (B, C)),
                     (self.r1, "bwt_loop r1", i32, (B, C)),
                     (self.flags, "bwt_loop unresolved", torch.bool, (B, C)),
-                    (self.tiles, "bwt_loop tiles", i32,
-                     (B, -(-C // TILE), 2)))
+                    (self.scratch, "bwt_loop scratch", i32,
+                     (2 * B * -(-C // TAIL_TILE) + 4 + B,)))
             if ld != C:
                 raise ValueError(f"bwt_loop: A of width {ld} for {C} entries")
         _checks((self.n, "bwt_loop n", i32, (B,)),
@@ -465,23 +526,24 @@ class Round:
                 _build.ptr(self.r1), _build.ptr(self.n), _build.ptr(self.A),
                 _build.ptr(self.Bv), C, ld, _build.ptr(out[0]),
                 _build.ptr(out[1]), _build.ptr(k0), _build.ptr(k1), ld,
-                SORT_TILE, _build.ptr(self.tiles), _build.ptr(self.flags)]
+                SORT_TILE, _build.ptr(self.scratch), _build.ptr(self.flags)]
 
 
 class StageLoop:
     """One stage's doubling loop, as the JAX package's while_loop: the loop
-    test (gate mode ``entry``), then ``body`` (a :class:`Round`) followed by
-    the test after a round, for as long as the test holds.  On a card
-    :func:`loop` builds the test and one round into a CUDA graph with a
-    conditional WHILE node at its first run and launches that graph at
-    every run, so the buffers must outlive it (:meth:`free`).  counts:
-    int32 (2,) on the card, where the graph's gate kernels count the
-    stage's entries and rounds (None on the CPU)."""
+    test (gate mode ``entry``), then ``body`` (a :class:`Round`, called with
+    ``after``, the test it ends with) for as long as the test holds.  On a
+    card :func:`loop` builds the entry test and one round into a CUDA graph
+    with a conditional WHILE node at its first run and launches that graph
+    at every run, so the buffers must outlive it (:meth:`free`).  counts:
+    int32 (2,) on the card, where the graph's entry gate and round count
+    the stage's entries and rounds (None on the CPU)."""
 
     def __init__(self, body, ctl, unres, rec, N: int, thresh: int,
                  stage: int, entry: int, counts=None):
         self.body, self.ctl, self.unres, self.rec = body, ctl, unres, rec
         self.N, self.thresh, self.stage, self.entry = N, thresh, stage, entry
+        self.after = LoopTest(ctl, rec, thresh, stage)
         self.counts = counts
         self.graph = ct.c_void_p()
         self.exec = ct.c_void_p()
@@ -495,11 +557,11 @@ class StageLoop:
         """Add the launches of the graph's kernels that the card counted
         since the last fold; counts: (entries, rounds) read from
         ``self.counts``.  The entry test runs once a launch, the round's
-        kernels and the test after it once a round that ran."""
+        kernels once a round that ran (its last kernel runs the test after
+        it)."""
         entries, rounds = counts
         _build.count_launches([GATE_K], entries - self.folded[0])
-        _build.count_launches(self.body.kernels + [GATE_K],
-                              rounds - self.folded[1])
+        _build.count_launches(self.body.kernels, rounds - self.folded[1])
         self.folded = (entries, rounds)
 
     def build(self) -> None:
@@ -544,8 +606,7 @@ def loop(lp: StageLoop) -> None:
     if lp.ctl.device.type == "cpu":
         lp.test(lp.entry)
         while int(lp.ctl[GATE]):
-            lp.body()
-            lp.test(AFTER_ROUND)
+            lp.body(lp.after)
         return
     _checks((lp.ctl, "bwt_loop ctl", i32, (3,)))
     if not lp.exec:

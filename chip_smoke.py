@@ -5,6 +5,7 @@
                           [--old-walk PATH.cu ...]
                           [--old-mtf-inverse PATH.cu]
                           [--old-symbol-scan PATH.cu]
+                          [--old-bwt-rounds PATH.cu]
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. print the toolchain and the card; fail without CUDA;
@@ -180,6 +181,15 @@ ends: no host sync), times each kernel beside its plain version and its
 bound, and measures the loop the port keeps (a CUDA graph a stage with a
 conditional WHILE node) on the first -9 batch and the periodic batch:
 device launches, host time, device time and wall of one bwt_batched call.
+It times the entry gate as a node of a CUDA graph beside the floor of such
+a node, an empty kernel of its shape (the chase probe's).  With
+--old-bwt-rounds (repeatable), an earlier bwt_rounds.cu, built with the
+current sort_pairs.cu into build/probe/, is held against the current one
+and timed in turns with it: the tail round's end (its two-kernel tail
+rerank and after-round gate against the one kernel that runs the test in
+its last CTA) and one bwt_batched call's device time on the first -9
+batch and the periodic batch, each design's stage loops built as its own
+graphs on one plan.
 The design it was chosen over, a gated schedule of every stage's rounds up
 to their bound, is not built any more; PERF.md keeps its numbers.
 Phase 3 also holds the encode kernels at phase 11c's batches: at each
@@ -259,7 +269,7 @@ SYMBOLS = {
     "bwt_rerank": ("rerank_scan_kernel<true>", "rerank_scatter_kernel<true>",
                    "rerank_scan_kernel<false>",
                    "rerank_scatter_kernel<false>"),
-    "bwt_tail_rerank": ("tail_scan_kernel", "tail_scatter_kernel"),
+    "bwt_tail_rerank": ("tail_rerank_kernel",),
     "bwt_gate": ("gate_kernel",),
 }
 BWT = ("bwt_keys", "bwt_rerank", "bwt_tail_rerank", "bwt_gate")
@@ -311,7 +321,7 @@ TOOLS = (
 #: walk was measured against, or from a CTA's own shared memory (a lut1
 #: table staged as uint16, as the symbol scan reads it); and the MTF^-1
 #: kernel's two chains, a warp's dependent shuffles and a CTA's shared
-#: gathers between barriers
+#: gathers between barriers; and an empty kernel, the floor of a graph node
 CHASE_PROBE = r"""
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -489,6 +499,15 @@ extern "C" int probe_chase_cluster(const int* next, int n, int steps,
   cudaError_t e = cudaLaunchKernelEx(&s.cfg, chase_cluster, next, n, s.slice,
                                      s.magic, steps, start, out);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// an empty kernel of the BWT gate's shape (one CTA of 256 threads): as a
+// node of a CUDA graph, the floor of the gate's node
+__global__ void empty_node() {}
+
+extern "C" int probe_empty_node(void* stream) {
+  empty_node<<<1, kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
@@ -1254,23 +1273,26 @@ def group_hist_library(torch, mtfv, n_mtf, g_size: int = 50):
     return call
 
 
-def start_probe_build(path: str, stem: str) -> tuple:
-    """Start nvcc on one probe source into build/probe/, keyed by the
-    source's hash, beside the kernels' build.  Returns (library path, the
-    nvcc process or None when the library is already there)."""
+def start_probe_build(path: str, stem: str, extra=()) -> tuple:
+    """Start nvcc on one probe source (and the sources in extra, linked
+    with it) into build/probe/, keyed by the sources' hash, beside the
+    kernels' build.  Returns (library path, the nvcc process or None when
+    the library is already there)."""
     import hashlib
 
     from bzip2_tpu_torch import _build
-    with open(path, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    so = os.path.join(PROBE_DIR, f"lib{stem}_{tag}.so")
+    h = hashlib.sha256()
+    for src in (path, *extra):
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    so = os.path.join(PROBE_DIR, f"lib{stem}_{h.hexdigest()[:12]}.so")
     if os.path.exists(so):
         return so, None
     os.makedirs(PROBE_DIR, exist_ok=True)
     return so, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", _build.CSRC,
-         "-o", so, path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+         "-o", so, path, *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
 
 
 def probe_lib(build: tuple):
@@ -2825,16 +2847,36 @@ def bwt_work(torch, key, sample) -> tuple:
         return (tensor_bytes(p) + 4 * live + min(32 * live, tensor_bytes(rank))
                 + 2 * tensor_bytes(A)), 0
     if w == "rerank":
-        ka, kb, order, _n, rank, _t, _u = sample
+        ka, kb, order, _n, rank, _t, unres, test = sample
         reads = tensor_bytes(ka, kb) + (0 if order is None
                                         else tensor_bytes(order))
-        return reads + 2 * 32 * rank.numel(), 0   # rank and tied scattered
+        # rank and tied scattered
+        return reads + 2 * 32 * rank.numel() + loop_test_bytes(unres, test), 0
     if w == "tail_rerank":
-        As, Bs, _rd, p, r1, un, _u = sample
-        live = int((As != 0x7FFFFFFF).sum())
-        return tensor_bytes(As, Bs, p, r1, un) + 32 * live, 0
+        As, Bs, rankD, p, r1, un, unres, test = sample
+        # rankD holds r1 at each live entry's position: a sector is written
+        # only where the rank changes
+        return (tensor_bytes(As, Bs, p, r1, un) + 32 * tail_changed(sample)
+                + loop_test_bytes(unres, test)), 0
     ctl, unres = sample[0], sample[1]
     return tensor_bytes(ctl, unres), unres.numel()
+
+
+def tail_changed(sample) -> int:
+    """The live entries of a tail round's sample whose rank changes."""
+    from bzip2_tpu_torch.ops import bwt_kernel as bk
+    As, Bs, rankD = sample[:3]
+    new = bk.tail_rerank_plain(As, Bs, rankD.clone())[1]
+    return int(((As != bk.INF) & (new != (As >> 11))).sum())
+
+
+def loop_test_bytes(unres, test) -> int:
+    """The loop test after a round: unres read and written, ctl and a
+    record row written."""
+    if test is None:
+        return 0
+    return 2 * tensor_bytes(unres) + tensor_bytes(test.ctl) + (
+        0 if test.rec is None else 4 * test.rec.shape[1])
 
 
 def bwt_call(torch, key, sample) -> tuple:
@@ -2843,6 +2885,7 @@ def bwt_call(torch, key, sample) -> tuple:
     calls may repeat), and its plain version; each returns what it
     writes."""
     from bzip2_tpu_torch.ops import bwt_kernel as bk
+    from torch_bwt_cases import loop_test_copy, loop_test_outputs
     w, _form = key
     if w == "keys":
         rank, n, ctl, A, Bv, p, r1 = sample
@@ -2857,22 +2900,41 @@ def bwt_call(torch, key, sample) -> tuple:
             return kern, lambda: bk.full_keys_plain(rank, n, k)
         return kern, lambda: bk.tail_keys_plain(rank, p, r1, n, k)
     if w == "rerank":
-        ka, kb, order, n, rank, tied, unres = sample
+        ka, kb, order, n, rank, tied, unres, test = sample
+        B, N = rank.shape
         outs = [torch.empty_like(x) for x in (rank, tied, unres)]
+        sc = bk.rerank_scratch(B, N, rank.device)
+        kt, pt = loop_test_copy(test), loop_test_copy(test)
 
         def kern():
-            bk.rerank(ka, kb, order, n, *outs)
-            return tuple(outs)
-        return kern, lambda: bk.rerank_plain(ka, kb, order, n, rank.shape[1])
+            bk.rerank(ka, kb, order, n, *outs, scratch=sc, test=kt)
+            return tuple(outs) + loop_test_outputs(kt)
+
+        def plain():
+            out = bk.rerank_plain(ka, kb, order, n, N)
+            if pt is not None:
+                bk.gate_plain(pt.ctl, out[2], pt.rec, N, pt.thresh, pt.stage,
+                              bk.AFTER_ROUND)
+            return out + loop_test_outputs(pt)
+        return kern, plain
     if w == "tail_rerank":
-        As, Bs, rankD, p, r1, un, unres = sample
+        As, Bs, rankD, p, r1, un, unres, test = sample
         outs = [torch.empty_like(x) for x in (p, r1, un, unres)]
         rk, rp = rankD.clone(), rankD.clone()
+        sc = bk.tail_scratch(*As.shape, As.device)
+        kt, pt = loop_test_copy(test), loop_test_copy(test)
 
         def kern():
-            bk.tail_rerank(As, Bs, rk, *outs)
-            return (*outs, rk)
-        return kern, lambda: (*bk.tail_rerank_plain(As, Bs, rp), rp)
+            bk.tail_rerank(As, Bs, rk, *outs, scratch=sc, test=kt)
+            return (*outs, rk) + loop_test_outputs(kt)
+
+        def plain():
+            out = bk.tail_rerank_plain(As, Bs, rp)
+            if pt is not None:
+                bk.gate_plain(pt.ctl, out[3], pt.rec, rp.shape[1] - 1,
+                              pt.thresh, pt.stage, bk.AFTER_ROUND)
+            return (*out, rp) + loop_test_outputs(pt)
+        return kern, plain
     ctl, unres, _rec, N, thresh, stage, _mode = sample
     ck, cp = ctl.clone(), ctl.clone()
 
@@ -2892,8 +2954,8 @@ def bwt_pass(torch, batches: dict) -> dict:
     then run once through the WHILE graphs without a host sync, its
     launches printed; each kernel timed on the first -9 batch's inputs (a
     form that batch does not run, on the first batch that does).  Each
-    batch runs on a stream of its own.  Returns the kernels line's
-    entries."""
+    batch runs on a stream of its own.  Returns the kernels line's entries
+    and the samples, {(wrapper, form): (batch, inputs)}."""
     from torch_bwt_cases import KERNEL_OF
     samples = {}
     for name, (bt, nt) in batches.items():
@@ -2910,7 +2972,7 @@ def bwt_pass(torch, batches: dict) -> dict:
               "kernel", flush=True)
         for key, sample in rc.samples.items():
             samples.setdefault(key, (name, sample))
-    return _bwt_times(torch, samples)
+    return _bwt_times(torch, samples), samples
 
 
 def _bwt_batch_pass(torch, name, bt, nt) -> tuple:
@@ -2960,6 +3022,10 @@ def _bwt_times(torch, samples: dict) -> dict:
         live = ("" if key != ("keys", "tail") else
                 f", {int((sample[5] >= 0).sum())} of {sample[5].numel()} "
                 "entries live")
+        if key == ("tail_rerank", "tail"):
+            live = (f", {int((sample[0] != 0x7FFFFFFF).sum())} of "
+                    f"{sample[0].numel()} entries live, "
+                    f"{tail_changed(sample)} ranks changed")
         print(f"  {KERNEL_OF[key[0]]} ({key[1]}, {name} {shape}{live}): "
               f"kernel {ms:.4f} ms back to back (3 samples "
               f"{min(ks):.4f}-{max(ks):.4f}), {cold:.4f} ms a call after "
@@ -2974,6 +3040,196 @@ def _bwt_times(torch, samples: dict) -> dict:
     if missing:
         raise AssertionError(f"no -9 sample for {missing}")
     return res
+
+
+#: kernel nodes a graph of gate_floor's holds
+GRAPH_NODES = 50
+
+
+def gate_floor(torch, lib, sample) -> None:
+    """Phase 3: the entry gate as a node of a CUDA graph beside the floor
+    of such a node, an empty kernel of its shape (one CTA of 256 threads,
+    the chase probe's probe_empty_node): GRAPH_NODES nodes of each
+    captured in one graph, each graph's replay timed with CUDA events in
+    turns (empty, gate, gate, empty), a node's time the replay's over
+    GRAPH_NODES."""
+    import ctypes as ct
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import bwt_kernel as bk
+    ctl, unres, _rec, N, thresh, stage, _mode = sample
+    ck = ctl.clone()
+    lib.probe_empty_node.argtypes = [ct.c_void_p]
+
+    def empty():
+        if lib.probe_empty_node(_build.stream_of(ck)):
+            raise AssertionError("the empty kernel did not launch")
+
+    def graph(fn):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(GRAPH_NODES):
+                fn()
+        return g
+    gates = graph(lambda: bk.gate(ck, unres, None, N, thresh, stage,
+                                  bk.ENTRY))
+    empties = graph(empty)
+    t, _ = in_turns(torch, empties.replay, gates.replay, 5)
+    node = [x / GRAPH_NODES for x in t]
+    print(f"  bwt_gate as a graph node ({GRAPH_NODES} nodes a graph, in "
+          f"turns): empty {node[0]:.4f}, gate {node[1]:.4f}, gate "
+          f"{node[2]:.4f}, empty {node[3]:.4f} ms a node; the floor (an "
+          f"empty kernel node) {(node[0] + node[3]) / 2:.4f} ms, the gate "
+          f"{(node[1] + node[2]) / 2:.4f} ms; byte bound "
+          f"{bound(tensor_bytes(ctl, unres))['bound_ms']:.4f} ms",
+          flush=True)
+
+
+def _call_device_ms(torch, fn) -> float:
+    """Device time of one call of fn queued behind a sleeping kernel (about
+    77 ms), so that the host's launches do not show, by CUDA events."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    asleep = torch.cuda.Event()
+    torch.cuda._sleep(1 << 27)
+    asleep.record()
+    t0.record()
+    fn()
+    t1.record()
+    if asleep.query():
+        raise AssertionError("the call was queued after the sleep ended")
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def old_bwt_rounds_pass(torch, lib, path, sample, batches: dict) -> None:
+    """Phase 3 with --old-bwt-rounds: an earlier bwt_rounds.cu (built with
+    the current sort_pairs.cu; its C entry points those of the first
+    design, whose tail rerank is two kernels and whose loop test after a
+    round is a gate node of its own) against the current one, in turns on
+    the same inputs.  The tail round's end: the old tail_rerank and gate
+    (mode AFTER_ROUND) against the one kernel with its test, on phase 3's
+    -9 tail sample, outputs held equal, each turn the median of 5
+    device_ms samples of 10 calls.  Then one bwt_batched call on the first
+    -9 batch and on the periodic batch, each design's stage loops as its
+    own CUDA graphs on one plan: outputs equal, device time of a call
+    (_call_device_ms) in turns, 5 samples a turn, medians printed."""
+    import ctypes as ct
+
+    from bzip2_tpu_torch import _build
+    from bzip2_tpu_torch.ops import bwt as tbwt
+    from bzip2_tpu_torch.ops import bwt_kernel as bk
+    P, I = ct.c_void_p, ct.c_int
+    lib.bz2t_bwt_tail_rerank.argtypes = [P] * 8 + [I] * 3 + [P]
+    lib.bz2t_bwt_gate.argtypes = bk.GATE_K.argtypes
+    lib.bz2t_bwt_loop_build.argtypes = bk.LOOP_BUILD.argtypes
+    lib.bz2t_bwt_loop_launch.argtypes = [P, P]
+    lib.bz2t_bwt_loop_free.argtypes = [P, P]
+    lib.bz2t_bwt_capture_stream.argtypes = [P]
+    dev = torch.device("cuda")
+    i32 = torch.int32
+
+    def ok(rc, what):
+        if rc:
+            raise AssertionError(f"old {what} failed ({rc})")
+
+    # the tail round's end
+    As, Bs, rankD, p, _r1, _un, unres, test = sample
+    B, C = As.shape
+    N = rankD.shape[1] - 1
+    old_tiles = torch.empty((B, -(-C // bk.TILE), 2), dtype=i32, device=dev)
+    scratch = bk.tail_scratch(B, C, dev)
+
+    def outs():
+        return [rankD.clone(), torch.empty_like(p), torch.empty_like(p),
+                torch.empty_like(_un), torch.empty_like(unres),
+                test.ctl.clone(), test.rec.clone()]
+    o, nw = outs(), outs()
+    ptr = [t.data_ptr() for t in o]
+
+    def old():
+        st = _build.stream_of(As)
+        ok(lib.bz2t_bwt_tail_rerank(As.data_ptr(), Bs.data_ptr(),
+                                    old_tiles.data_ptr(), *ptr[:5], B, N, C,
+                                    st), "tail_rerank")
+        ok(lib.bz2t_bwt_gate(ptr[5], ptr[4], ptr[6], None, B, N, test.thresh,
+                             test.stage, test.rec.shape[0], bk.AFTER_ROUND,
+                             0, 0, st), "gate")
+
+    def new():
+        bk.tail_rerank(As, Bs, *nw[:5], scratch=scratch,
+                       test=bk.LoopTest(nw[5], nw[6], test.thresh,
+                                        test.stage))
+    old()
+    new()
+    torch.cuda.synchronize()
+    for a, b in zip(o, nw):
+        if not torch.equal(a, b):
+            raise AssertionError("the old tail round's end disagrees with "
+                                 "the current one")
+    _turns(torch, f"tail round's end ({'x'.join(map(str, As.shape))}: "
+           "tail_rerank + gate vs the one kernel)", path, old, new)
+
+    # one bwt_batched call, each design's loops on one plan
+    cap = ct.c_void_p()
+    ok(lib.bz2t_bwt_capture_stream(ct.byref(cap)), "capture stream")
+    for name in (f"-{LEVEL} first batch", "periodic"):
+        bt, nt = batches[name]
+        B, N = bt.shape
+        plan = tbwt._Plan(B, N, dev)
+        cnt = torch.zeros((len(plan.loops), 2), dtype=i32, device=dev)
+        graphs, scratches = {}, []
+        for i, lp in enumerate(plan.loops):
+            rnd = lp.body.args()
+            C = N if lp.body.p is None else lp.body.p.shape[1]
+            scratches.append(torch.empty(
+                B * -(-C // bk.TILE) * (1 if lp.body.p is None else 2),
+                dtype=i32, device=dev))
+            rnd[14] = _build.ptr(scratches[-1])
+            graph, ex = ct.c_void_p(), ct.c_void_p()
+            ok(lib.bz2t_bwt_loop_build(
+                cap, _build.ptr(lp.ctl), _build.ptr(lp.unres),
+                _build.ptr(lp.rec), _build.ptr(cnt[i]), B, lp.N, lp.thresh,
+                lp.stage, lp.rec.shape[0], lp.entry, *rnd, ct.byref(graph),
+                ct.byref(ex)), "loop build")
+            graphs[id(lp)] = (graph, ex)
+        real_loop = bk.loop
+
+        def old_loop(lp):
+            ok(lib.bz2t_bwt_loop_launch(graphs[id(lp)][1], ct.c_void_p(
+                torch.cuda.current_stream().cuda_stream)), "loop launch")
+
+        def run_old():
+            bk.loop = old_loop
+            try:
+                return tbwt._bwt(plan, bt, nt)
+            finally:
+                bk.loop = real_loop
+
+        def run_new():
+            return tbwt._bwt(plan, bt, nt)
+        want = tbwt.bwt_batched(bt, nt)
+        for got in (run_old(), run_new(), run_old()):
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"bwt {name}: the old design's loops "
+                                     "disagree with the current ones")
+        t = [float(np.median([_call_device_ms(torch, f) for _ in range(5)]))
+             for f in (run_old, run_new, run_new, run_old)]
+        o_ms, n_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"  old design {os.path.basename(path)} vs the current loops, "
+              f"one bwt_batched call on {name} {'x'.join(map(str, bt.shape))},"
+              f" device ms in turns (medians of 5): old {t[0]:.3f}, new "
+              f"{t[1]:.3f}, new {t[2]:.3f}, old {t[3]:.3f}; means old "
+              f"{o_ms:.3f}, new {n_ms:.3f}; ratio new / old "
+              f"{n_ms / o_ms:.3f}; outputs equal", flush=True)
+        torch.cuda.synchronize()
+        for graph, ex in graphs.values():
+            ok(lib.bz2t_bwt_loop_free(ex, graph), "loop free")
+        for lp in plan.loops:
+            lp.free()
+        del plan, graphs, scratches
 
 
 def loop_pass(torch, batches: dict, reps: int = 4) -> None:
@@ -3041,6 +3297,12 @@ def main() -> int:
                     default=[], help="an earlier symbol_scan.cu to check "
                     "against and time in turns beside the current kernel on "
                     "the first -9 decode batch (repeatable)")
+    ap.add_argument("--old-bwt-rounds", metavar="PATH.cu", action="append",
+                    default=[], help="an earlier bwt_rounds.cu (the first "
+                    "design's C entry points: a two-kernel tail rerank and "
+                    "a gate node after each round) to check against and time "
+                    "in turns beside the current one: the tail round's end "
+                    "and one bwt_batched call (repeatable)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))   # torch_decode_cases
@@ -3083,6 +3345,11 @@ def main() -> int:
                               for i, p in enumerate(args.old_walk))]:
         if path:
             probes[key] = start_probe_build(path, stem)
+    for i, path in enumerate(args.old_bwt_rounds):
+        # its loop build calls bz2t_sort_pairs: linked with the current one
+        probes[f"bwt_rounds{i}"] = start_probe_build(
+            path, "bwt_rounds_old",
+            [os.path.join(_build.CSRC, "sort_pairs.cu")])
     so = _build.build()
     _build._load()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
@@ -3185,10 +3452,17 @@ def main() -> int:
                                      for i, p in enumerate(args.old_huffman)])
     # the BWT's round kernels at four batches, then its device loop
     bwt_sets = bwt_batches(torch, blocks, bt, nt)
-    results.update(bwt_pass(torch, bwt_sets))
+    bwt_results, bwt_samples = bwt_pass(torch, bwt_sets)
+    results.update(bwt_results)
+    gate_floor(torch, probe_lib(probes["chase"]),
+               bwt_samples[("gate", "mode0")][1])
     loop_pass(torch, {k: bwt_sets[k] for k in (
         f"-{LEVEL} first batch", "periodic")})
-    del bt, nt, ut, bwt_sets
+    for i, path in enumerate(args.old_bwt_rounds):
+        old_bwt_rounds_pass(torch, probe_lib(probes[f"bwt_rounds{i}"]), path,
+                            bwt_samples[("tail_rerank", "tail")][1],
+                            bwt_sets)
+    del bt, nt, ut, bwt_sets, bwt_samples
     # phase 10's batch shapes: all 19 blocks on the one-entry mesh, 10 on
     # the first of two entries (and on rank 1 of phase 10c)
     for rows in (len(blocks), -(-len(blocks) // 2)):

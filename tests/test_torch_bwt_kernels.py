@@ -186,6 +186,80 @@ def test_bwt_batched_matches_jax(rng, kind):
         assert np.array_equal(last[i, :m].numpy(), b[i][(s - 1) % m])
 
 
+def _long_run_rows(rng):
+    """Two rows of N = 65,536 random bytes with runs of one byte (19,000
+    and 9,000 long), which stay tied through the full-width stage."""
+    N = 65536
+    b = rng.integers(0, 256, (2, N)).astype(np.uint8)
+    b[0, 20000:39000] = 0x61
+    b[1, 1000:10000] = 0x62
+    return b, np.array([N, N - 3], np.int32)
+
+
+def test_bwt_batched_long_tail_segment_matches_jax(monkeypatch):
+    """The first tail stage (C = 16,384) starts with one tied segment of
+    14,905 entries, across four tiles of 4096 entries (eight of the tail
+    rerank's 2048: the carry its look-back passes on), a later stage runs
+    no round and the next closes after one; the port equals the JAX
+    package."""
+    b, n = _long_run_rows(np.random.default_rng(7))
+    spans = []
+    real = bk.tail_rerank_plain
+
+    def spy(As, Bs, rankD):
+        a = As.numpy()
+        for row in a:
+            live = np.flatnonzero(row != bk.INF)
+            if live.size:
+                cut = np.flatnonzero(np.diff(row[live] >> 11) != 0)
+                first = live[np.concatenate([[0], cut + 1])] // 4096
+                last = live[np.concatenate([cut, [live.size - 1]])] // 4096
+                spans.append(int((last - first).max()) + 1)
+        return real(As, Bs, rankD)
+    monkeypatch.setattr(bk, "tail_rerank_plain", spy)
+    seen = []
+    monkeypatch.setattr(tbwt, "ROUND_HOOK",
+                        lambda s, k, u: seen.append((s, k)))
+    _jax_vs_port(b, n)
+    assert max(spans) >= 3
+    rounds = [sum(s == st for s, _k in seen) for st in range(1, 6)]
+    assert 1 in rounds and 0 in rounds[:rounds.index(1)], rounds
+
+
+@pytest.mark.parametrize("kind", ["text mixed lengths", "long runs",
+                                  "golden"])
+def test_tail_rounds_find_rank_at_r1(monkeypatch, rng, golden, kind):
+    """Every tail round of bwt_batched finds rankD holding r1 (As >> 11) at
+    each live entry's position, the precondition under which the tail
+    rerank kernel skips the ranks that do not change; and some of them do
+    not (the kernel's writes are fewer than the live entries)."""
+    seen = []
+    real = bk.tail_rerank_plain
+
+    def spy(As, Bs, rankD):
+        live = As != bk.INF
+        pos = torch.where(live, Bs & bk.P20, rankD.shape[1] - 1).long()
+        held = torch.gather(rankD, 1, pos) == torch.where(
+            live, As >> 11, rankD.shape[1] - 1)
+        out = real(As, Bs, rankD)
+        seen.append((bool(held.all()), int(live.sum()),
+                     int((live & (out[1] != As >> 11)).sum())))
+        return out
+    monkeypatch.setattr(bk, "tail_rerank_plain", spy)
+    if kind == "long runs":
+        b, n = _long_run_rows(rng)
+    elif kind == "golden":
+        N = 16384
+        b = np.frombuffer(golden[2][0][9000:9000 + 2 * N], np.uint8).reshape(
+            2, N).copy()
+        n = np.array([N, 11000], np.int32)
+    else:
+        b, n = _rows(kind, 4096, rng)
+    tbwt.bwt_batched(torch.from_numpy(b), torch.from_numpy(n))
+    assert seen and all(h for h, _l, _c in seen)
+    assert sum(c for _h, _l, c in seen) < sum(lv for _h, lv, _c in seen)
+
+
 def test_bwt_batched_golden_text_matches_jax(golden):
     """Two golden-text blocks of different lengths at N = 16,384: real
     text reaches the tail stages."""
@@ -277,6 +351,53 @@ def test_rounds_bound():
 
 # ------------------------------------------------------ dispatch/binding --
 
+@pytest.mark.parametrize("wrapper", ["rerank", "tail_rerank"])
+def test_cpu_rerank_ends_with_the_loop_test(rng, wrapper):
+    """With a LoopTest, the CPU wrapper is its plain version followed by
+    gate_plain(AFTER_ROUND) on the unres it wrote: k doubles, the record
+    gets (stage, k, unres) and the gate the test's result; without one,
+    ctl and the record stay as they were."""
+    B, N, C = 3, 5000, 4096 + 7
+    n = torch.tensor([N, 17, 2000], dtype=torch.int32)
+    for with_test in (True, False):
+        ctl = bk.control("cpu")
+        ctl[bk.K] = 1024
+        rec = torch.zeros((4, B + 2), dtype=torch.int32)
+        test = bk.LoopTest(ctl, rec, 3, 2) if with_test else None
+        unres = torch.full((B,), -9, dtype=torch.int32)
+        if wrapper == "rerank":
+            a, b2 = _sorted_cols(rng, B, N, 300)
+            order = np.stack([rng.permutation(N) for _ in range(B)])
+            kb = torch.from_numpy((b2 << 20) | order.astype(np.int32))
+            rank = torch.zeros((B, N), dtype=torch.int32)
+            tied = torch.zeros((B, N), dtype=torch.bool)
+            bk.rerank(torch.from_numpy(a), kb, None, n, rank, tied, unres,
+                      test=test)
+            want = bk.rerank_plain(torch.from_numpy(a), kb, None, n, N)[2]
+        else:
+            a = np.sort(rng.integers(0, 40, (B, C)).astype(np.int32) << 11,
+                        axis=1)
+            a[:, C - 100:] = bk.INF
+            kb = torch.from_numpy((rng.integers(0, 3, (B, C)).astype(np.int32)
+                                   << 20) | rng.integers(0, N, (B, C))
+                                  .astype(np.int32))
+            rankD = torch.full((B, N + 1), N, dtype=torch.int32)
+            outs = [torch.zeros((B, C), dtype=t) for t in
+                    (torch.int32, torch.int32, torch.bool)]
+            bk.tail_rerank(torch.from_numpy(a), kb, rankD, *outs, unres,
+                           test=test)
+            want = bk.tail_rerank_plain(torch.from_numpy(a), kb,
+                                        rankD.clone())[3]
+        assert torch.equal(unres, want)
+        if with_test:
+            go = int(bool((want > 3).any()))
+            assert ctl.tolist() == [go, 2048, 1]
+            assert rec[0].tolist() == [2, 2048] + want.tolist()
+            assert not rec[1:].any()
+        else:
+            assert ctl.tolist() == [0, 1024, 0] and not rec.any()
+
+
 def test_cpu_gate_updates_control_and_record():
     """The CPU gate doubles k after a round, appends (stage, k, unres) to
     the record and writes the loop test; the CPU keys wrapper writes the
@@ -307,8 +428,9 @@ def test_cpu_gate_updates_control_and_record():
 
 def test_loop_fold_counts_each_round_that_ran():
     """A loop graph's kernels count from the card's (entries, rounds): the
-    entry test once a launch, the round's kernels once a round that ran,
-    none for a launch whose test failed at once."""
+    entry test once a launch, the round's kernels once a round that ran
+    (its rerank runs the test after it: no gate a round), none for a
+    launch whose test failed at once."""
     ks = [_build.KERNELS[k] for k in ("sort_pairs",) + NEW_KERNELS]
     keys, rerank, gate = ks[1], ks[2], ks[4]
     body = bk.Round(*[None] * 9)            # a full-width round's kernels
@@ -319,10 +441,32 @@ def test_loop_fold_counts_each_round_that_ran():
     lp.fold((1, 0))                 # launched; no round ran
     assert [k.launches for k in ks] == [0, 0, 0, 0, 1]
     lp.fold((3, 5))                 # two more launches, five rounds
-    assert [k.launches for k in ks] == [5, 5, 5, 0, 8]
+    assert [k.launches for k in ks] == [5, 5, 5, 0, 3]
     lp.fold((3, 5))
-    assert [k.launches for k in ks] == [5, 5, 5, 0, 8]
+    assert [k.launches for k in ks] == [5, 5, 5, 0, 3]
+    tail = bk.Round(*[None] * 9, p=0)       # a tail round's kernels
+    assert tail.kernels == [keys, ks[0], ks[3]]
     _build.reset_launches()
+
+
+def test_cpu_loop_tests_once_an_entry_and_in_each_round(monkeypatch):
+    """The CPU loop runs the gate once a stage's entry and the test after
+    each round inside the round's rerank (as the card's kernels do): on one
+    bwt_batched call, gate_plain sees six entries and one AFTER_ROUND test
+    a round the record holds."""
+    modes = []
+    real = bk.gate_plain
+    monkeypatch.setattr(bk, "gate_plain", lambda *a: (modes.append(a[-1]),
+                                                      real(*a)))
+    rows = []
+    monkeypatch.setattr(tbwt, "ROUND_HOOK",
+                        lambda s, k, u: rows.append((s, k)))
+    b, n = _rows("text mixed lengths", 4096, np.random.default_rng(2))
+    tbwt.bwt_batched(torch.from_numpy(b), torch.from_numpy(n))
+    entries = [m for m in modes if m != bk.AFTER_ROUND]
+    assert entries == [bk.ENTRY_RECORD] + [bk.ENTRY] * len(
+        tbwt._tail_ladder(4096))
+    assert modes.count(bk.AFTER_ROUND) == len(rows) - 1 > 0
 
 
 @pytest.mark.parametrize("kind", ["text mixed lengths", "periodic mix"])
@@ -370,14 +514,22 @@ def test_wrappers_refuse_non_cpu_tensors_without_plain(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         bk.tail_rerank(z(2, 8), z(2, 8), z(2, 65), z(2, 8), z(2, 8),
                        z(2, 8, dt=torch.bool), z(2))
+    test = bk.LoopTest(z(3), None, 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.tail_rerank(z(2, 8), z(2, 8), z(2, 65), z(2, 8), z(2, 8),
+                       z(2, 8, dt=torch.bool), z(2),
+                       scratch=bk.tail_scratch(2, 8, meta), test=test)
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.rerank(z(2, 64), z(2, 64), None, z(2), z(2, 64),
+                  z(2, 64, dt=torch.bool), z(2), test=test)
     with pytest.raises(ValueError, match="CUDA"):
         bk.gate(z(3), z(2), None, 64, 0, 0, bk.ENTRY)
     with pytest.raises(ValueError, match="CUDA"):
         sk.sort_pairs(z(2, 128), z(2, 128))
     body = []
     with pytest.raises(ValueError, match="CUDA"):
-        bk.loop(bk.StageLoop(lambda: body.append(1), z(3), z(2), None, 64, 0,
-                             0, bk.ENTRY))
+        bk.loop(bk.StageLoop(lambda t: body.append(t), z(3), z(2), None, 64,
+                             0, 0, bk.ENTRY))
     assert calls == [] and body == []
 
 

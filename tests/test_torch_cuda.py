@@ -23,7 +23,8 @@ from bzip2_tpu_torch.ops import mtf_inverse_kernel as mik
 from bzip2_tpu_torch.ops import mtf_kernel as mk
 from bzip2_tpu_torch.ops import sort_kernel as sk
 from bzip2_tpu_torch.ops import symbol_kernel as sym_k
-from torch_bwt_cases import KERNEL_OF, RoundCheck, periodic_rows
+from torch_bwt_cases import (KERNEL_OF, RoundCheck, periodic_rows,
+                             tail_round_inputs)
 from torch_decode_cases import (mtf_edge_rows, mtf_rows, parsed,
                                 span_case, wrap_case)
 
@@ -982,6 +983,8 @@ def test_bwt_graph_launches_count_the_rounds_that_ran(cuda_device, case):
     tbwt.bwt_batched(blocks, n)
     graphs = {k: _build.KERNELS[k].launches for k in BWT_COUNTED}
     assert graphs == looped
+    # the gate runs once a stage's entry: the round's rerank tests after it
+    assert graphs["bwt_gate"] == len(tbwt._tail_ladder(blocks.shape[1])) + 1
     # periodic rows resolve in the full-width stage: no tail round runs
     assert all(v > 0 for k, v in graphs.items()
                if case == "-9 batch" or k != "bwt_tail_rerank")
@@ -1017,3 +1020,166 @@ def test_bwt_plans_dropped_while_threads_capture_and_launch(cuda_device):
     out = bwt_stress.main(["--threads", "2", "--seconds", "15",
                            "--hang-after", "120"])
     assert out["calls"] > 40 and out["mismatches"] == 0 and not out["errors"]
+
+
+# ----------------------------------- the tail round's end, one kernel (card) --
+
+#: (kind, C, N, k before the round, thresh): C not a multiple of the
+#: kernel's tile; a row set with every entry dead; one segment across
+#: every tile; a round
+#: after which the test closes (thresh above every row's count); k
+#: reaching N (the test closes whatever the counts)
+TAIL_EDGES = {
+    "C not a multiple of the tile": ("mixed", 3 * 4096 + 17, 20_000, 1024,
+                                     0),
+    "every entry dead": ("dead", 2 * 4096, 9_000, 64, 0),
+    "a segment across every tile": ("one segment", 8 * 4096, 40_000, 4096, 0),
+    "the test closes": ("full", 4 * 4096 + 5, 20_000, 2048, 1 << 20),
+    "k reaches N": ("one segment", 4096 + 1, 8_192, 4096, 0),
+}
+
+
+def _tail_round(dev, kind, C, N, k, thresh, seed=3):
+    """A tail round's end on the card and its plain version on the CPU:
+    (run, want, outs); run() launches the kernel with its loop test into
+    outs, want the plain outputs (p, r1, unresolved, unres, rankD, ctl,
+    rec) on the CPU."""
+    rng = np.random.default_rng(seed)
+    B = 3
+    As, Bs, rankD = tail_round_inputs(rng, B, C, N, kind)
+    ctl = torch.tensor([1, k, 1], dtype=torch.int32)
+    rec = torch.zeros((3, B + 2), dtype=torch.int32)
+    rd = rankD.clone()
+    want = list(bk.tail_rerank_plain(As, Bs, rd)) + [rd]
+    wctl, wrec = ctl.clone(), rec.clone()
+    bk.gate_plain(wctl, want[3], wrec, N, thresh, 4, bk.AFTER_ROUND)
+    want += [wctl, wrec]
+    g = [t.to(dev) for t in (As, Bs, rankD, ctl, rec)]
+    outs = [torch.full((B, C), -3, dtype=torch.int32, device=dev),
+            torch.full((B, C), -3, dtype=torch.int32, device=dev),
+            torch.ones((B, C), dtype=torch.bool, device=dev),
+            torch.full((B,), -7, dtype=torch.int32, device=dev),
+            g[2], g[3], g[4]]
+    scratch = bk.tail_scratch(B, C, dev)
+    test = bk.LoopTest(g[3], g[4], thresh, 4)
+
+    def run():
+        bk.tail_rerank(g[0], g[1], g[2], *outs[:4], scratch=scratch,
+                       test=test)
+    return run, want, outs, scratch, (g[2], g[3], g[4], rankD, ctl, rec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TAIL_EDGES))
+def test_bwt_tail_rerank_kernel_edges(cuda_device, case):
+    """The one-pass tail rerank and the loop test in its last CTA equal
+    tail_rerank_plain followed by gate_plain(AFTER_ROUND): p, r1, the
+    unresolved flags, unres, rankD, ctl and the record."""
+    kind, C, N, k, thresh = TAIL_EDGES[case]
+    run, want, outs, _sc, _keep = _tail_round(cuda_device, kind, C, N, k,
+                                              thresh)
+    run()
+    torch.cuda.synchronize()
+    for g, w in zip(outs, want):
+        assert torch.equal(g.cpu(), w)
+    go = int(want[5][bk.GATE])
+    assert go == (case not in ("the test closes", "k reaches N",
+                               "every entry dead"))
+
+
+@pytest.mark.cuda
+def test_bwt_rerank_kernels_leave_their_scratch_ready(cuda_device):
+    """unres is written, not added to: filled with garbage before each of
+    two calls on one scratch, it equals the plain count after each; the
+    tail kernel's last CTA leaves its tickets, CTAs done and row sums at
+    zero and raises the epoch by one a launch; the full-width rerank with
+    a test leaves its count of CTAs done at zero."""
+    C = 3 * 4096 + 17
+    run, want, outs, scratch, keep = _tail_round(
+        cuda_device, "mixed", C, 20_000, 1024, 1 << 20)
+    B, tiles = 3, -(-C // bk.TAIL_TILE)
+    rankD, ctl, rec, rd0, ctl0, rec0 = keep
+    for launch in (1, 2):
+        outs[3].fill_(-7 * launch)
+        rankD.copy_(rd0)
+        ctl.copy_(ctl0)
+        rec.copy_(rec0)
+        run()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[3].cpu(), want[3])
+        ctrl = scratch[2 * B * tiles:].cpu().tolist()
+        assert ctrl[:3] == [0, 0, launch] and ctrl[4:] == [0] * B
+    rng = np.random.default_rng(4)
+    N = 3 * 4096 + 9
+    a = np.sort(rng.integers(0, 500, (B, N)).astype(np.int32), axis=1)
+    kb = ((rng.integers(0, 3, (B, N)).astype(np.int32) << 20)
+          | np.stack([rng.permutation(N) for _ in range(B)]).astype(np.int32))
+    n = torch.tensor([N, 100, 4097], dtype=torch.int32)
+    exp = bk.rerank_plain(torch.from_numpy(a), torch.from_numpy(kb), None, n,
+                          N)
+    sc = bk.rerank_scratch(B, N, cuda_device)
+    ka, kbd = (torch.from_numpy(x).to(cuda_device) for x in (a, kb))
+    nd = n.to(cuda_device)
+    for launch in (1, 2):
+        out = [torch.full((B, N), -3, dtype=torch.int32, device=cuda_device),
+               torch.ones((B, N), dtype=torch.bool, device=cuda_device),
+               torch.full((B,), 99 * launch, dtype=torch.int32,
+                          device=cuda_device)]
+        c = bk.control(cuda_device)
+        bk.rerank(ka, kbd, None, nd, *out, scratch=sc,
+                  test=bk.LoopTest(c, None, 0, 0))
+        torch.cuda.synchronize()
+        for g, w in zip(out, exp):
+            assert torch.equal(g.cpu(), w)
+        assert int(sc[-1]) == 0 and c.tolist() == [1, 32, 0]
+
+
+@pytest.mark.cuda
+def test_bwt_tail_round_graph_replayed_200_times(cuda_device):
+    """One tail round's end captured in a CUDA graph and replayed 200 times
+    on one scratch, its inputs restored and its outputs spoilt before each
+    replay: every replay is exact (a stale status word, epoch or ticket
+    would give wrong ranks), and the epoch counts the replays."""
+    C = 8 * 4096
+    run, want, outs, scratch, keep = _tail_round(
+        cuda_device, "one segment", C, 40_000, 4096, 0)
+    rankD, ctl, rec, rd0, ctl0, rec0 = keep
+    run()                           # the warm-up launch, outside the graph
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        run()
+    for i in range(200):
+        for o in outs[:3]:
+            o.fill_(-1 if o.dtype != torch.bool else True)
+        outs[3].fill_(i)
+        rankD.copy_(rd0)
+        ctl.copy_(ctl0)
+        rec.copy_(rec0)
+        g.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got.cpu(), w), i
+    B, tiles = 3, C // bk.TAIL_TILE
+    assert int(scratch[2 * B * tiles + 2]) == 201
+
+
+@pytest.mark.cuda
+def test_bwt_loop_graphs_200_calls_exact(cuda_device):
+    """200 bwt_batched calls in a row on one plan, each through the stage
+    loops' WHILE graphs (rows whose first tail stage starts with one
+    segment across four tiles), every call equal to the first and to the
+    CPU's."""
+    N = 65536
+    rng = np.random.default_rng(7)
+    b = rng.integers(0, 256, (2, N)).astype(np.uint8)
+    b[0, 20000:39000] = 0x61
+    b[1, 1000:10000] = 0x62
+    n = np.array([N, N - 3], np.int32)
+    exp = tbwt.bwt_batched(torch.from_numpy(b), torch.from_numpy(n))
+    bd, nd = torch.from_numpy(b).to(cuda_device), torch.from_numpy(n).to(
+        cuda_device)
+    for i in range(200):
+        got = tbwt.bwt_batched(bd, nd)
+        for g, w in zip(got, exp):
+            assert torch.equal(g.cpu(), w), i

@@ -46,6 +46,58 @@ def periodic_rows(rng, B: int, N: int) -> tuple:
     return blocks, ns
 
 
+def tail_round_inputs(rng, B: int, C: int, N: int, kind: str) -> tuple:
+    """A tail round's sorted pair as its sort leaves it: each row's live
+    entries first, in (A, B) order, (r1 << 11 | n1 >> 9, (n1 & 511) << 20 |
+    pos) at distinct positions pos < N, then dead entries (INF, 1 << 29 |
+    j).  kind: "mixed" (a random live count, a few hundred segments),
+    "dead" (no live entry), "one segment" (every entry live, one r1: a
+    segment across every tile, split into sub-classes by n1) or "full"
+    (every entry live).  rankD holds random ranks, r1 at each live
+    entry's position (as the stage loops keep it) and N in the dump
+    column.  Returns (As, Bs) int32 (B, C) and rankD int32 (B, N + 1)."""
+    INF = bk.INF
+    rankD = rng.integers(0, N, (B, N + 1))
+    rankD[:, N] = N
+    As = np.full((B, C), INF, np.int64)
+    Bs = (1 << 29) | np.tile(np.arange(C, dtype=np.int64), (B, 1))
+    for b in range(B):
+        live = {"dead": 0, "one segment": C, "full": C}.get(
+            kind, int(rng.integers(1, C + 1)))
+        if kind == "one segment":
+            r1 = np.full(live, 7, np.int64)
+        else:
+            r1 = np.sort(rng.integers(0, max(2, live // 50), live))
+        # neighbour ranks from a range a few times narrower than the row:
+        # sub-classes of every size, singletons among them
+        n1 = rng.integers(0, max(2, live // int(rng.integers(1, 8))), live)
+        pos = rng.permutation(N)[:live]
+        A = (r1 << 11) | (n1 >> 9)
+        Bv = ((n1 & 511) << 20) | pos
+        o = np.lexsort((Bv, A))
+        As[b, :live] = A[o]
+        Bs[b, :live] = Bv[o]
+        rankD[b, pos] = r1
+    return tuple(torch.from_numpy(x.astype(np.int32))
+                 for x in (As, Bs, rankD))
+
+
+def loop_test_copy(test):
+    """A loop test (bwt_kernel.LoopTest) on copies of its ctl and record;
+    None for None."""
+    if test is None:
+        return None
+    return test._replace(ctl=test.ctl.clone(),
+                         rec=None if test.rec is None else test.rec.clone())
+
+
+def loop_test_outputs(test) -> tuple:
+    """What a loop test writes: its ctl and its record (none for None)."""
+    if test is None:
+        return ()
+    return (test.ctl,) + (() if test.rec is None else (test.rec,))
+
+
 def _sync(t) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -67,7 +119,8 @@ class RoundCheck:
     the gate after a device sync), so each round's kernels launch one by
     one; each call to a round wrapper is also run through its plain
     version on copies of its inputs and the wrapper's writes are held
-    against it.  ``calls`` counts the calls by wrapper, ``checked`` those
+    against it, those of the loop test a rerank ends with (ctl and the
+    round record) included.  ``calls`` counts the calls by wrapper, ``checked`` those
     compared (all of them), ``err`` the largest difference by wrapper,
     ``samples`` the inputs of the first call of each (wrapper, form), for
     timing."""
@@ -88,8 +141,7 @@ class RoundCheck:
     def _loop(self, lp):
         lp.test(lp.entry)
         while self._open(lp.ctl, lp.unres):
-            lp.body()
-            lp.test(bk.AFTER_ROUND)
+            lp.body(lp.after)
 
     def __exit__(self, *exc):
         for w, f in self._orig.items():
@@ -126,31 +178,47 @@ class RoundCheck:
         C = exp[0].shape[1]
         self._note("keys", form, (A[:, :C], Bv[:, :C]), exp, sample)
 
-    def _rerank(self, ka, kb, order, n, rank, tied, unres, tiles=None):
+    def _rerank(self, ka, kb, order, n, rank, tied, unres, scratch=None,
+                test=None):
         self.calls["rerank"] += 1
         _sync(rank)
         form = "wide" if order is not None else "full"
         exp = bk.rerank_plain(ka, kb, order, n, rank.shape[1])
         sample = (ka.clone(), kb.clone(),
                   None if order is None else order.clone(), n.clone(),
-                  rank.clone(), tied.clone(), unres.clone())
-        self._orig["rerank"](ka, kb, order, n, rank, tied, unres, tiles)
+                  rank.clone(), tied.clone(), unres.clone(),
+                  loop_test_copy(test))
+        want = loop_test_copy(test)
+        if want is not None:
+            bk.gate_plain(want.ctl, exp[2], want.rec, rank.shape[1],
+                          want.thresh, want.stage, bk.AFTER_ROUND)
+        self._orig["rerank"](ka, kb, order, n, rank, tied, unres, scratch,
+                             test)
         _sync(rank)
-        self._note("rerank", form, (rank, tied, unres), exp, sample)
+        self._note("rerank", form,
+                   (rank, tied, unres) + loop_test_outputs(test),
+                   exp + loop_test_outputs(want), sample)
 
     def _tail_rerank(self, As, Bs, rankD, p, r1, unresolved, unres,
-                     tiles=None):
+                     scratch=None, test=None):
         self.calls["tail_rerank"] += 1
         _sync(As)
         rd = rankD.clone()
         sample = (As.clone(), Bs.clone(), rankD.clone(), p.clone(),
-                  r1.clone(), unresolved.clone(), unres.clone())
+                  r1.clone(), unresolved.clone(), unres.clone(),
+                  loop_test_copy(test))
         exp = bk.tail_rerank_plain(As, Bs, rd)
+        want = loop_test_copy(test)
+        if want is not None:
+            bk.gate_plain(want.ctl, exp[3], want.rec, rankD.shape[1] - 1,
+                          want.thresh, want.stage, bk.AFTER_ROUND)
         self._orig["tail_rerank"](As, Bs, rankD, p, r1, unresolved, unres,
-                                  tiles)
+                                  scratch, test)
         _sync(As)
-        self._note("tail_rerank", "tail", (p, r1, unresolved, unres, rankD),
-                   (*exp, rd), sample)
+        self._note("tail_rerank", "tail",
+                   (p, r1, unresolved, unres, rankD)
+                   + loop_test_outputs(test),
+                   (*exp, rd) + loop_test_outputs(want), sample)
 
     def _gate(self, ctl, unres, rec, N, thresh, stage, mode):
         self.calls["gate"] += 1
