@@ -24,6 +24,7 @@ from . import constants as C
 from . import crc as _crc
 from . import periodic
 from . import rle1 as _rle1
+from . import tracing
 from .bitstream import BitReader, BitWriter, splice
 
 
@@ -141,30 +142,33 @@ def compress_with(encoder, data, level: int = 9) -> bytes:
 
 def _compress_blocks(encoder, data, level: int) -> bytes:
     """The RLE1 blocks of ``data`` through ``encoder``, whose payloads are
-    final, then framed."""
-    blocks = _rle1.encode_blocks(data, level)
-    return frame([b.crc for b in blocks],
-                 encoder(blocks, level) if blocks else [], level)
+    final, then framed: the span ``compress``, the root of the call's
+    spans."""
+    with tracing.span("compress", None, bytes=len(data), level=level):
+        blocks = _rle1.encode_blocks(data, level)
+        return frame([b.crc for b in blocks],
+                     encoder(blocks, level) if blocks else [], level)
 
 
 def frame(block_crcs: list, payloads: list, level: int) -> bytes:
     """The stream of final block payloads, in block order, whose blocks
     have the CRCs ``block_crcs``: the header, the payloads bit-spliced,
     then the end-of-stream magic and the combined CRC."""
-    w = BitWriter()
-    w.write(C.HDR_B, 8)
-    w.write(C.HDR_Z, 8)
-    w.write(C.HDR_h, 8)
-    w.write(C.HDR_0 + level, 8)
-    header, hbits = w.getvalue()
-    parts = [(header, hbits)]
-    parts.extend(payloads)
-    eos = BitWriter()
-    eos.write(C.EOS_MAGIC, 48)
-    eos.write(_crc.combine_block_crcs(block_crcs), 32)
-    parts.append(eos.getvalue())
-    buf, _ = splice(parts)
-    return buf.tobytes()
+    with tracing.span("frame", None):
+        w = BitWriter()
+        w.write(C.HDR_B, 8)
+        w.write(C.HDR_Z, 8)
+        w.write(C.HDR_h, 8)
+        w.write(C.HDR_0 + level, 8)
+        header, hbits = w.getvalue()
+        parts = [(header, hbits)]
+        parts.extend(payloads)
+        eos = BitWriter()
+        eos.write(C.EOS_MAGIC, 48)
+        eos.write(_crc.combine_block_crcs(block_crcs), 32)
+        parts.append(eos.getvalue())
+        buf, _ = splice(parts)
+        return buf.tobytes()
 
 
 def decompress(data, multi_stream: bool = False,

@@ -28,8 +28,8 @@ block order.  ``use_device=False`` encodes every block on the host.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import threading
-import time
 
 import numpy as np
 import torch
@@ -47,9 +47,10 @@ from .ops.mtf import mtf_rle2_batched
 A = C.MAX_ALPHA_SIZE
 MTF_TILE = 2048
 
-#: cumulative encode stage walls (seconds); the blocks handed to the
-#: engine, those the device and the host workers encoded, and the batches
-#: the device declined.  Updated under _TELEM_LOCK by every worker.
+#: cumulative encode stage walls (seconds, on the boundaries of the batch's
+#: spans); the blocks handed to the engine, those the device and the host
+#: workers encoded, and the batches the device declined.  Updated under
+#: _TELEM_LOCK by every worker.
 STAGE_WALL: dict = {}
 SHARE: dict = {"blocks": 0, "dev_blocks": 0, "host_blocks": 0, "declines": 0}
 _TELEM_LOCK = threading.Lock()
@@ -300,10 +301,16 @@ def worker_context(device: torch.device, i: int):
 
 def _fetch(words, nbits) -> tuple:
     """One fetch of the bit counts, then one of the used words: (words
-    uint32 (B, k) numpy cut to the longest block, nbits (B,) numpy)."""
-    nbits_np = nbits.cpu().numpy()
+    uint32 (B, k) numpy cut to the longest block, nbits (B,) numpy, the
+    words' wait span)."""
+    with tracing.span("wait", None, what="nbits"):
+        nbits_np = nbits.cpu().numpy()
     need = int((int(nbits_np.max()) + 31) // 32)
-    return words[:, :need].cpu().numpy().astype(np.uint32), nbits_np
+    with tracing.span("wait", None, timed=True, what="words",
+                      bytes=words.shape[0] * need * words.element_size()) \
+            as sp:
+        out = words[:, :need].cpu().numpy().astype(np.uint32)
+    return out, nbits_np, sp
 
 
 def payloads_from_words(words: np.ndarray, nbits) -> list:
@@ -369,43 +376,53 @@ class Engine:
             return self._encode_fused(arr, ns, uses, crcs)
         return self._encode_hybrid(arr, ns, uses, crcs)
 
+    def _stage_in(self, arrays):
+        """The batch's numpy inputs on the device (the span ``stage_in``)."""
+        with tracing.span("stage_in", None, timed=True,
+                          bytes=sum(a.nbytes for a in arrays)) as sp:
+            return stage_from_numpy(arrays, self.device), sp
+
     def _encode_fused(self, arr, ns, uses, crcs):
         """One device call and one fetch a batch; no host heap."""
-        t0 = time.perf_counter()
-        blocks, n, in_use, crc = stage_from_numpy((arr, ns, uses, crcs),
-                                                  self.device)
+        (blocks, n, in_use, crc), first = self._stage_in((arr, ns, uses,
+                                                          crcs))
         words, nbits = encode_batch_device(blocks, n, in_use, crc,
                                            _words_for(arr.shape[1]))
-        out = _fetch(words, nbits)
-        _stage_add("fused+fetch", time.perf_counter() - t0)
-        return out
+        words, nbits, last = _fetch(words, nbits)
+        _stage_add("fused+fetch", (last.t1_ns - first.t0_ns) / 1e9)
+        return words, nbits
 
     def _encode_hybrid(self, arr, ns, uses, crcs):
         dev = self.device
         B = arr.shape[0]
-        t0 = time.perf_counter()
-        blocks, n, in_use, crc = stage_from_numpy((arr, ns, uses, crcs), dev)
-        (mtfv, n_mtf, n_in_use, orig_ptr, n_groups, lens, hist,
-         table_invalid) = encode_pre(blocks, n, in_use)
-        # .cpu() waits for the device, so the wall below is the stage's
-        alpha6 = np.repeat(n_in_use.cpu().numpy() + 2, 6).astype(np.int32)
-        t1 = time.perf_counter()
+        (blocks, n, in_use, crc), first = self._stage_in((arr, ns, uses,
+                                                          crcs))
+        with tracing.span("pre", None):
+            (mtfv, n_mtf, n_in_use, orig_ptr, n_groups, lens, hist,
+             table_invalid) = encode_pre(blocks, n, in_use)
+        # .cpu() waits for the device, so the walls below are the stages'
+        with tracing.span("wait", None, timed=True, what="n_in_use") as pre:
+            alpha6 = np.repeat(n_in_use.cpu().numpy() + 2, 6).astype(np.int32)
         selectors = None
         for _ in range(C.N_ITERS):
-            selectors, freq6 = group_iter(hist, lens, table_invalid)
-            lens_np = native.make_code_lengths_batch(
-                freq6.cpu().numpy().reshape(B * 6, A), alpha6)
-            lens = torch.from_numpy(lens_np.reshape(B, 6, A)).to(dev)
-        t2 = time.perf_counter()
-        words, nbits = encode_post(mtfv, n_mtf, n_in_use, in_use, crc,
-                                   orig_ptr, n_groups, selectors, lens,
-                                   _words_for(arr.shape[1]))
-        out = _fetch(words, nbits)
-        t3 = time.perf_counter()
-        _stage_add("pre(bwt+mtf+hist)", t1 - t0)
-        _stage_add("4xiter+heap", t2 - t1)
-        _stage_add("post+fetch", t3 - t2)
-        return out
+            with tracing.span("group_iter", None):
+                selectors, freq6 = group_iter(hist, lens, table_invalid)
+            with tracing.span("wait", None, what="freq"):
+                freq_np = freq6.cpu().numpy().reshape(B * 6, A)
+            with tracing.span("heap", None, rows=B * 6):
+                lens_np = native.make_code_lengths_batch(freq_np, alpha6)
+            with tracing.span("lens_in", None, timed=True,
+                              bytes=lens_np.nbytes) as heap:
+                lens = torch.from_numpy(lens_np.reshape(B, 6, A)).to(dev)
+        with tracing.span("post", None):
+            words, nbits = encode_post(mtfv, n_mtf, n_in_use, in_use, crc,
+                                       orig_ptr, n_groups, selectors, lens,
+                                       _words_for(arr.shape[1]))
+        words, nbits, last = _fetch(words, nbits)
+        _stage_add("pre(bwt+mtf+hist)", (pre.t1_ns - first.t0_ns) / 1e9)
+        _stage_add("4xiter+heap", (heap.t1_ns - pre.t1_ns) / 1e9)
+        _stage_add("post+fetch", (last.t1_ns - heap.t1_ns) / 1e9)
+        return words, nbits
 
     def encode_payloads(self, blocks: list, level: int) -> list:
         """Encode RLE1 blocks into per-block (MSB-first bytes, nbits)
@@ -482,15 +499,16 @@ class Engine:
             tracing.record("block", index=k, crc=blk.crc, raw_bytes=raw,
                            rle1_bytes=int(blk.data.size), out_bits=nbit)
 
-        def run_batch(s, take):
+        def run_batch(s, take, worker):
             # the batch has exactly ``take`` lanes: nothing is compiled per
             # shape, so a tail batch needs no dummy lanes
             chunk = blocks[s:s + take]
-            t0 = time.perf_counter()
-            with tracing.span(f"batch[{s}:{s + take}]"):
-                words, nbits = self.encode_batch(
-                    level, *batch_arrays(chunk, take, N))
-            wall = time.perf_counter() - t0
+            with tracing.span("batch", log_as=f"batch[{s}:{s + take}]",
+                              first=s, rows=take, worker=worker) as sp:
+                with tracing.span("pack", None):
+                    arrays = batch_arrays(chunk, take, N)
+                words, nbits = self.encode_batch(level, *arrays)
+            wall = sp.seconds
             with lock:
                 # min-biased estimate of the device batch wall: a queued or
                 # cold batch reports an inflated wall, and an estimate
@@ -502,7 +520,9 @@ class Engine:
                     sched["dev_wall"] = 0.8 * sched["dev_wall"] + 0.2 * wall
                 state["dev_inflight"] -= 1
             _share_add("dev_blocks", take)
-            for j, p in enumerate(payloads_from_words(words, nbits)):
+            with tracing.span("payloads", None, first=s, rows=take):
+                payloads = payloads_from_words(words, nbits)
+            for j, p in enumerate(payloads):
                 results[s + j] = p
                 record_block(s + j, p[1])
 
@@ -513,7 +533,7 @@ class Engine:
                         s, take = claim_front()
                         if take == 0:
                             return
-                        run_batch(s, take)
+                        run_batch(s, take, i)
             except BaseException as e:  # noqa: BLE001 -- re-raised after join
                 errors.append(e)
 
@@ -524,35 +544,41 @@ class Engine:
                     if k < 0:
                         return
                     blk = blocks[k]
-                    t0 = time.perf_counter()
-                    payload, nbits = native.encode_block(blk.data,
-                                                         blk.in_use, blk.crc)
-                    dt = time.perf_counter() - t0
+                    with tracing.span("host_block", None, timed=True,
+                                      first=k) as sp:
+                        payload, nbits = native.encode_block(
+                            blk.data, blk.in_use, blk.crc)
                     with lock:
                         sched["host_done"] += 1
-                        sched["host_time"] += dt
+                        sched["host_time"] += sp.seconds
                     _share_add("host_blocks")
                     results[k] = (np.frombuffer(payload, np.uint8), nbits)
                     record_block(k, nbits)
             except BaseException as e:  # noqa: BLE001 -- re-raised after join
                 errors.append(e)
 
-        host_threads = [threading.Thread(target=host_worker)
-                        for _ in range(n_host)]
-        for t in host_threads:
-            t.start()
-        if self.use_device:
-            dev_threads = [threading.Thread(target=device_worker, args=(i,))
-                           for i in range(1, self.pipeline)]
-            for t in dev_threads:
+        def thread(fn, *args):
+            # in a copy of the caller's context: the worker's spans nest
+            # under the call's ``encode`` span
+            return threading.Thread(target=contextvars.copy_context().run,
+                                    args=(fn, *args))
+
+        with tracing.span("encode", None, blocks=L):
+            host_threads = [thread(host_worker) for _ in range(n_host)]
+            for t in host_threads:
                 t.start()
-            device_worker(0)
-            for t in dev_threads:
+            if self.use_device:
+                dev_threads = [thread(device_worker, i)
+                               for i in range(1, self.pipeline)]
+                for t in dev_threads:
+                    t.start()
+                device_worker(0)
+                for t in dev_threads:
+                    t.join()
+            else:
+                host_worker()   # the main thread joins the host pool
+            for t in host_threads:
                 t.join()
-        else:
-            host_worker()   # the main thread joins the host pool
-        for t in host_threads:
-            t.join()
         if errors:
             raise errors[0]
         assert all(r is not None for r in results)

@@ -28,12 +28,13 @@ slot).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from . import bwt_kernel as bk
 from .sort_kernel import MIN_N, sort_buffers, sort_pairs
 
@@ -47,8 +48,9 @@ _INIT_BYTES = 16          # initial rank depth (4 packed 32-bit keys)
 #: the compact tail stages; ``k`` is the prefix length the ranks then
 #: resolve and ``unres`` (B,) int32 the positions still tied.  The rows come
 #: from the round record the device writes, read once at the end of the
-#: call, and only when the hook is set.  The measurement tools set it
-#: (``tools/bwt_stats.py``, ``tools/scale_bench.py``).
+#: call, and only when the hook is set (the span ``round_hook``).  The
+#: measurement tools set it (``tools/bwt_stats.py``,
+#: ``tools/scale_bench.py``, ``tools/span_idle.py --round-hook``).
 ROUND_HOOK = None
 
 
@@ -187,35 +189,42 @@ _FOLD_LOCK = threading.Lock()
 def _plan(B: int, N: int, dev) -> _Plan:
     """A plan of width N with at least B rows on the current stream,
     locked: a new one on the CPU, else the cached one, made at the first
-    call and replaced by one of B rows when B is more than it has."""
+    call and replaced by one of B rows when B is more than it has.  Making
+    a plan, and dropping the plans that it replaces or that overflow the
+    cache (only a call that makes one drops any), is the span
+    ``bwt_plan``."""
     if dev.type == "cpu":
-        plan = _Plan(B, N, dev)
+        with tracing.span("bwt_plan", None, rows=B, n=N):
+            plan = _Plan(B, N, dev)
         plan.lock.acquire()
         return plan
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, N)
     while True:
         idle, busy = [], []
-        with _PLANS_LOCK:
-            plan = _PLANS.get(key)
-            if plan is None or plan.B < B:
-                if plan is not None:        # too few rows: replaced
-                    plan.dropped = True
-                    busy.append(plan)
-                plan = _PLANS[key] = _Plan(B, N, dev)
-            _PLANS.move_to_end(key)
-            for k, old in list(_PLANS.items()):
-                if len(_PLANS) <= _PLANS_MAX:
-                    break
-                # an idle plan only: one another call holds stays
-                if k != key and old.lock.acquire(blocking=False):
-                    old.dropped = True
-                    idle.append(_PLANS.pop(k))
-        for old in busy:            # its call (same stream) ends soon
-            old.lock.acquire()
-            idle.append(old)
-        for old in idle:
-            old.free()
-            old.lock.release()
+        with contextlib.ExitStack() as made:
+            with _PLANS_LOCK:
+                plan = _PLANS.get(key)
+                if plan is None or plan.B < B:
+                    made.enter_context(tracing.span("bwt_plan", None,
+                                                    rows=B, n=N))
+                    if plan is not None:    # too few rows: replaced
+                        plan.dropped = True
+                        busy.append(plan)
+                    plan = _PLANS[key] = _Plan(B, N, dev)
+                _PLANS.move_to_end(key)
+                for k, old in list(_PLANS.items()):
+                    if len(_PLANS) <= _PLANS_MAX:
+                        break
+                    # an idle plan only: one another call holds stays
+                    if k != key and old.lock.acquire(blocking=False):
+                        old.dropped = True
+                        idle.append(_PLANS.pop(k))
+            for old in busy:        # its call (same stream) ends soon
+                old.lock.acquire()
+                idle.append(old)
+            for old in idle:
+                old.free()
+                old.lock.release()
         plan.lock.acquire()
         if not plan.dropped:
             return plan
@@ -255,8 +264,9 @@ def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
             blocks = torch.cat([blocks, blocks.new_zeros((plan.B - B, N))])
             n = torch.cat([n, n.new_ones(plan.B - B)])
         last, orig_ptr, sa = _bwt(plan, blocks, n)
-        if ROUND_HOOK is not None:
-            _replay_rounds(plan.ctl, plan.rec, B)
+        if ROUND_HOOK is not None:      # a device read: waits for the card
+            with tracing.span("round_hook", None):
+                _replay_rounds(plan.ctl, plan.rec, B)
     finally:
         plan.lock.release()
     return last[:B], orig_ptr[:B], sa[:B]

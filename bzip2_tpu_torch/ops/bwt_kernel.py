@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from .sort_kernel import KERNEL as SORT
 from .sort_kernel import TILE as SORT_TILE
 from .sort_kernel import sort_pairs
@@ -610,7 +610,9 @@ def loop(lp: StageLoop) -> None:
         return
     _checks((lp.ctl, "bwt_loop ctl", i32, (3,)))
     if not lp.exec:
-        lp.build()
+        with tracing.span("bwt_graph", None, stage=lp.stage,
+                          rows=lp.unres.shape[0]):
+            lp.build()
     stream = ct.c_void_p(torch.cuda.current_stream(lp.ctl.device).cuda_stream)
     with GRAPHS_LOCK:
         LOOP_LAUNCH(lp.exec, stream)

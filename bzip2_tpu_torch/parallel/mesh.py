@@ -129,7 +129,7 @@ def encode_blocks_sharded(mesh: Mesh, blocks_np, n_np, in_use_np, crc_np,
 
     def shard(dev, s, e):
         t = stage_from_numpy([a[s:e] for a in arrays], dev)
-        return _fetch(*encode_batch_device(*t, n_words))
+        return _fetch(*encode_batch_device(*t, n_words))[:2]
 
     parts = _on_entries(mesh, B, shard)
     k = max((w.shape[1] for _s, _e, (w, _n) in parts), default=0)

@@ -44,7 +44,7 @@ import math as _math
 
 import numpy as np
 
-from . import native
+from . import native, tracing
 
 # blake2b(block bytes) -> origPtr.  Periodic streams repeat identical
 # blocks, so a tiny LRU absorbs the pathological case (ADVICE r3: digest
@@ -193,9 +193,10 @@ def patch_payloads(payloads: list, blocks: list, level: int) -> list:
     """Patch a payload list in block order; cheap no-op on non-periodic
     blocks (the overwhelmingly common case)."""
     out = list(payloads)
-    for i, blk in enumerate(blocks):
-        if i < len(out) and out[i] is not None:
-            p, nb = out[i]
-            out[i] = patch_payload(np.asarray(p, np.uint8), nb,
-                                   blk.data, level)
+    with tracing.span("patch", None):
+        for i, blk in enumerate(blocks):
+            if i < len(out) and out[i] is not None:
+                p, nb = out[i]
+                out[i] = patch_payload(np.asarray(p, np.uint8), nb,
+                                       blk.data, level)
     return out

@@ -35,7 +35,7 @@ from typing import List
 
 import numpy as np
 
-from . import native
+from . import native, tracing
 from .constants import nblock_max
 
 
@@ -55,19 +55,20 @@ def encode_blocks(data, level: int, _nmax: int | None = None) -> List[RLE1Block]
     budget (tests only).  Raises if the native runtime did not build."""
     buf = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)
     nmax = nblock_max(level) if _nmax is None else _nmax
-    out, block_off, block_len, block_crc, in_use, raw_end = \
-        native.rle1_split(buf, nmax)
-    blocks = []
-    raw_start = 0
-    for b in range(block_off.size):
-        o = int(block_off[b])
-        blocks.append(RLE1Block(
-            data=out[o:o + int(block_len[b])],
-            crc=int(block_crc[b]),
-            in_use=in_use[b],
-            raw_span=(raw_start, int(raw_end[b]))))
-        raw_start = int(raw_end[b])
-    return blocks
+    with tracing.span("split", None, bytes=buf.size):
+        out, block_off, block_len, block_crc, in_use, raw_end = \
+            native.rle1_split(buf, nmax)
+        blocks = []
+        raw_start = 0
+        for b in range(block_off.size):
+            o = int(block_off[b])
+            blocks.append(RLE1Block(
+                data=out[o:o + int(block_len[b])],
+                crc=int(block_crc[b]),
+                in_use=in_use[b],
+                raw_span=(raw_start, int(raw_end[b]))))
+            raw_start = int(raw_end[b])
+        return blocks
 
 
 class RLE1DataError(ValueError):

@@ -23,7 +23,8 @@ import torch
 from bzip2_tpu_torch import api, decoder, engine
 from bzip2_tpu_torch.tools import (bwt_stats, gather_probe, mesh_bench,
                                    probe_stages, profile_device, sais_probe,
-                                   sanitize, scale_bench, scaling_bench)
+                                   sanitize, scale_bench, scaling_bench,
+                                   span_idle)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
@@ -91,6 +92,9 @@ TOOLS = {
     "sais_probe": (sais_probe, ["200000", "--device", "cpu"]),
     "sanitize": (sanitize, ["undefined", "--device", "cpu", "--scale", "1",
                             "--corrupt", "3"]),
+    "span_idle": (span_idle, ["--device", "cpu", "--level", "1",
+                              "--object-mib", "0.15", "--seconds", "0",
+                              "--round-hook"]),
 }
 
 
