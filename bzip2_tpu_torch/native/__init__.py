@@ -69,7 +69,8 @@ def _load():
         lib.bz2tpu_rle1_split.restype = ct.c_int64
         lib.bz2tpu_rle1_split.argtypes = [
             ct.c_void_p, ct.c_int64, ct.c_int32, ct.c_void_p, ct.c_void_p,
-            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64]
+            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64,
+            ct.POINTER(ct.c_int64)]
         lib.bz2tpu_fallback_origptr.restype = ct.c_int64
         lib.bz2tpu_fallback_origptr.argtypes = [ct.c_void_p, ct.c_int32]
         lib.bz2tpu_encode_block.restype = ct.c_int64
@@ -109,7 +110,8 @@ def crc32(data) -> int:
 def rle1_split(data, nmax: int):
     """RLE1-encode + block-split (reference bzlib.c:212-315 semantics; see
     ``rle1.py``).  Returns (out u8 buffer, block_off i64, block_len i32,
-    block_crc u32, in_use bool (B, 256), raw_end i64)."""
+    block_crc u32, in_use bool (B, 256), raw_end i64, wide_bytes): the
+    last, the input bytes the split's wide path copied."""
     lib = _need()
     buf = _u8(data)
     n = buf.size
@@ -122,6 +124,7 @@ def rle1_split(data, nmax: int):
     block_crc = np.empty(max_blocks, np.uint32)
     in_use = np.empty((max_blocks, 256), np.uint8)
     raw_end = np.empty(max_blocks, np.int64)
+    wide = ct.c_int64(0)
     nb = lib.bz2tpu_rle1_split(
         buf.ctypes.data_as(ct.c_void_p), n, np.int32(nmax),
         out.ctypes.data_as(ct.c_void_p),
@@ -129,12 +132,12 @@ def rle1_split(data, nmax: int):
         block_len.ctypes.data_as(ct.c_void_p),
         block_crc.ctypes.data_as(ct.c_void_p),
         in_use.ctypes.data_as(ct.c_void_p),
-        raw_end.ctypes.data_as(ct.c_void_p), max_blocks)
+        raw_end.ctypes.data_as(ct.c_void_p), max_blocks, ct.byref(wide))
     if nb < 0:
         raise RuntimeError(f"rle1_split: native error {nb}")
     nb = int(nb)
     return (out, block_off[:nb], block_len[:nb], block_crc[:nb],
-            in_use[:nb].astype(bool), raw_end[:nb])
+            in_use[:nb].astype(bool), raw_end[:nb], wide.value)
 
 
 def fallback_origptr(block) -> int:

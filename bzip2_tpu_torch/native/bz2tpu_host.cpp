@@ -1145,28 +1145,72 @@ void bz2tpu_free(u8* p) { free(p); }
 // ------------------------------------------------------------------ RLE1 --
 // Byte-level run-length pre-pass + block split (reference
 // copy_input_until_stop, bzlib.c:212-315; split semantics documented and
-// verified in bzip2_tpu/rle1.py).  Segments = maximal runs chopped at 255;
-// a segment of length L emits min(L,4) literals plus (L-4) for L >= 4;
+// verified in bzip2_tpu_torch/rle1.py).  Segments = maximal runs chopped at
+// 255; a segment of length L emits min(L,4) literals plus (L-4) for L >= 4;
 // segments flush whole, and a block closes after the segment that brings
 // it to >= nmax output bytes unless that segment is the stream's last.
 //
-// out:        caller buffer, >= len + len/4 + 8 bytes
+// Wide path.  Text and binary data hold almost no runs of 4 or more, and
+// there RLE1 copies its input.  At a position i with RLE1_W + 3 bytes of
+// input after it and RLE1_W bytes of room in the open block, and no run of
+// 4 at i itself, one vector step compares the RLE1_W bytes at i with
+// those at i+1, i+2 and i+3.  Every run that starts before the first run
+// of four equal bytes in the window is shorter than 4 and copied unchanged,
+// so the step stores the window and moves i to that run's start, or, if
+// the window has none, past the window: a run shorter than 4 that crosses
+// its end is literal however it is cut.
+// A run of 4 or more goes to the per-run loop, which passes it before the
+// next step: run-heavy input pays one 4-byte compare a run.  No block
+// closes inside a step (the room guard), so blocks close where the per-run
+// loop alone closes them.
+#if defined(__AVX2__)
+#define RLE1_W 32
+// Stores the 32 bytes at p to dst.  Returns bit k set iff p[k..k+3] are
+// equal.
+static inline u32 rle1_window(const u8* p, u8* dst) {
+  __m256i x = _mm256_loadu_si256((const __m256i*)p);
+  __m256i e1 = _mm256_cmpeq_epi8(
+      x, _mm256_loadu_si256((const __m256i*)(p + 1)));
+  __m256i e2 = _mm256_cmpeq_epi8(
+      x, _mm256_loadu_si256((const __m256i*)(p + 2)));
+  __m256i e3 = _mm256_cmpeq_epi8(
+      x, _mm256_loadu_si256((const __m256i*)(p + 3)));
+  _mm256_storeu_si256((__m256i*)dst, x);
+  return (u32)_mm256_movemask_epi8(
+      _mm256_and_si256(e1, _mm256_and_si256(e2, e3)));
+}
+#elif defined(__SSE2__)
+#define RLE1_W 16
+static inline u32 rle1_window(const u8* p, u8* dst) {
+  __m128i x = _mm_loadu_si128((const __m128i*)p);
+  __m128i e1 = _mm_cmpeq_epi8(x, _mm_loadu_si128((const __m128i*)(p + 1)));
+  __m128i e2 = _mm_cmpeq_epi8(x, _mm_loadu_si128((const __m128i*)(p + 2)));
+  __m128i e3 = _mm_cmpeq_epi8(x, _mm_loadu_si128((const __m128i*)(p + 3)));
+  _mm_storeu_si128((__m128i*)dst, x);
+  return (u32)_mm_movemask_epi8(_mm_and_si128(e1, _mm_and_si128(e2, e3)));
+}
+#endif
+
+// out:        caller buffer, >= len + len/4 + 8 bytes (a wide step stores
+//             RLE1_W bytes at the output position, all below that bound)
 // block_off:  (max_blocks) output offset of each block
 // block_len:  (max_blocks) RLE1-encoded length of each block
 // block_crc:  (max_blocks) finalized CRC-32 of the covered raw bytes
 // in_use:     (max_blocks * 256) 0/1 flags
 // raw_end:    (max_blocks) exclusive raw-input end of each block
+// wide_bytes: the input bytes the wide path copied
 // Returns the number of blocks, or -1 if max_blocks would be exceeded.
 i64 bz2tpu_rle1_split(const u8* data, i64 len, i32 nmax, u8* out,
                       i64* block_off, i32* block_len, u32* block_crc,
-                      u8* in_use, i64* raw_end, i64 max_blocks) {
+                      u8* in_use, i64* raw_end, i64 max_blocks,
+                      i64* wide_bytes) {
   crc_init();
   i64 n_blocks = 0;
   i64 opos = 0;
   i64 blk_out0 = 0, blk_raw0 = 0;
   u8* use = in_use;
   bool open = false;
-  i64 i = 0;
+  i64 i = 0, wide = 0;
   while (i < len) {
     if (!open) {
       if (n_blocks >= max_blocks) return -1;
@@ -1177,6 +1221,23 @@ i64 bz2tpu_rle1_split(const u8* data, i64 len, i32 nmax, u8* out,
     }
     u8 c = data[i];
     i64 j = i + 1;
+#ifdef RLE1_W
+    if (i + RLE1_W + 3 < len && opos - blk_out0 + RLE1_W < nmax) {
+      u32 head;
+      memcpy(&head, data + i, 4);
+      if (head != c * 0x01010101u) {
+        u32 quad = rle1_window(data + i, out + opos);
+        // quad's lowest bit is a run start (>= 1: no run of 4 at i)
+        i64 step = quad ? __builtin_ctz(quad) : RLE1_W;
+        for (i64 k = 0; k < step; k++) use[data[i + k]] = 1;
+        i += step;
+        opos += step;
+        wide += step;
+        continue;
+      }
+      j = i + 4;  // the run at i is 4 long at least
+    }
+#endif
     i64 stop = i + 255 < len ? i + 255 : len;
     while (j < stop && data[j] == c) j++;
     i64 L = j - i;
@@ -1207,6 +1268,7 @@ i64 bz2tpu_rle1_split(const u8* data, i64 len, i32 nmax, u8* out,
     raw_end[n_blocks] = len;
     n_blocks++;
   }
+  *wide_bytes = wide;
   return n_blocks;
 }
 

@@ -25,8 +25,17 @@ Semantics (reference ``copy_input_until_stop``, bzlib.c:212-315):
   block; ``inUse`` marks each segment's byte value plus every emitted
   ``L - 4`` length byte.
 
-The split runs in the port's native runtime (``native.rle1_split``, C++);
-the decode is vectorized NumPy over run boundaries (no per-byte Python).
+The split runs in the port's native runtime (``native.rle1_split``, C++).
+Text and binary data hold almost no runs of 4 or more, and there RLE1 is
+the identity, so the split has a wide path: where no run of 4 starts, one
+vector step compares 32 bytes (16 without AVX2) with the same bytes shifted
+by 1, 2 and 3, copies the window, and moves to the first run of four equal
+bytes in it or, with none, past it (a run shorter than 4 is literal however
+it is cut).  Runs of 4 or more, the input's last 35 bytes or so and a
+block's last 32 bytes of room take the per-run loop, so blocks close where
+they always did and the output is the per-run loop's, byte for byte.  The
+``split`` span records the bytes the wide path copied as ``wide_bytes``.  The decode is
+vectorized NumPy over run boundaries (no per-byte Python).
 """
 from __future__ import annotations
 
@@ -55,9 +64,11 @@ def encode_blocks(data, level: int, _nmax: int | None = None) -> List[RLE1Block]
     budget (tests only).  Raises if the native runtime did not build."""
     buf = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)
     nmax = nblock_max(level) if _nmax is None else _nmax
-    with tracing.span("split", None, bytes=buf.size):
-        out, block_off, block_len, block_crc, in_use, raw_end = \
+    with tracing.span("split", None, bytes=buf.size) as sp:
+        out, block_off, block_len, block_crc, in_use, raw_end, wide = \
             native.rle1_split(buf, nmax)
+        if sp is not None:      # a live span (spans off: the shared no-op)
+            sp.attrs["wide_bytes"] = wide
         blocks = []
         raw_start = 0
         for b in range(block_off.size):

@@ -43,6 +43,8 @@ from bzip2_tpu_torch import rle1 as trle1
 from bzip2_tpu_torch import tracing as ttracing
 from bzip2_tpu_torch.parallel import decode as tpdec
 
+import torch_rle1_cases
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
                     for p in (ROOT / "bzip2_tpu_torch").rglob("*.py")) + [
@@ -131,14 +133,20 @@ def test_native_builds_from_the_port_source():
     so = build.library_path()
     assert os.path.exists(so)
     # the copy is the reference's file but for the chain-chase dispatch,
-    # which the port fixed (tests/test_torch_native.py)
+    # which the port fixed (tests/test_torch_native.py), and the RLE1
+    # split, the port's own design with its wide path (the parity tests
+    # below)
     port = pathlib.Path(build.SRC).read_text()
     ref = (ROOT / "bzip2_tpu" / "native" / "bz2tpu_host.cpp").read_text()
-    head, tail = "template <int KN>\n", "// RLE1-expand one chased block"
+    own = [("template <int KN>\n", "// RLE1-expand one chased block"),
+           ("// " + "-" * 66 + " RLE1 --",
+            '}  // extern "C" (templates need C++ linkage)')]
 
     def outside(src):
-        i, j = src.index(head), src.index(tail)
-        return src[:i] + src[j:]
+        for head, tail in own:
+            i, j = src.index(head), src.index(tail)
+            src = src[:i] + src[j:]
+        return src
 
     assert outside(port) == outside(ref)
     assert "#if DEC_K" in ref and "#if DEC_K" not in port
@@ -220,6 +228,45 @@ def test_rle1_encode_blocks_matches(name, level, nmax):
     for g in got[:2]:
         assert np.array_equal(trle1.decode(g.data),
                               raw[g.raw_span[0]:g.raw_span[1]])
+
+
+RLE1_GROUPS = torch_rle1_cases.groups()
+
+
+@pytest.mark.parametrize("group", sorted(RLE1_GROUPS))
+def test_rle1_wide_path_matches(group):
+    """The split's wide path against the reference: runs at every offset
+    of a run-free stretch and around the windows' edges, every length near
+    the look-ahead, block budgets around the room guard, seeded mixes."""
+    for k, (data, level, nmax) in enumerate(RLE1_GROUPS[group]):
+        got = torch_rle1_cases.summary(trle1.encode_blocks(data, level, nmax))
+        exp = torch_rle1_cases.summary(jrle1.encode_blocks(data, level, nmax))
+        assert got == exp, (group, k, len(data), nmax)
+
+
+def _split_span(data) -> dict:
+    ttracing.enable_spans(True)
+    try:
+        trle1.encode_blocks(data, 9)
+        (sp,) = [s for s in ttracing.spans() if s["name"] == "split"]
+    finally:
+        ttracing.enable_spans(False)
+    return sp
+
+
+def test_rle1_split_span_counts_wide_bytes():
+    """On run-free input the wide path copies every byte but those the
+    per-run loop takes within its 35-byte look-ahead of the end; on runs of
+    4-200 (which the 255-byte chop never cuts) none."""
+    n = 100_000
+    sp = _split_span(torch_rle1_cases.run_free(n, 11))
+    assert sp["bytes"] == n
+    assert n - 2 * 35 < sp["wide_bytes"] <= n
+    rng = np.random.default_rng(12)
+    vals = np.cumsum(rng.integers(1, 256, 500)) % 256
+    runs = np.repeat(vals.astype(np.uint8), rng.integers(4, 201, 500))
+    sp = _split_span(runs.tobytes())
+    assert sp["bytes"] == runs.size and sp["wide_bytes"] == 0
 
 
 @pytest.mark.parametrize("max_freq", [3, 500, 3500])

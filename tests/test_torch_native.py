@@ -12,6 +12,13 @@ identifier that is not a macro; and streams of 1 to 30 blocks are decoded
 through the port's wrappers (``native.decode_some`` and
 ``native.decompress``) by a build with AddressSanitizer, in a child
 process, which must report no invalid access.
+
+The RLE1 split's wide path loads 35 bytes ahead of its position and stores
+32 bytes (16 without AVX2) at the output's.  Its parity cases
+(``torch_rle1_cases``) run through the AddressSanitizer build, each input
+in a buffer of its own exact size, and through a build without AVX2 (the
+16-byte path), in child processes: both give the reference's blocks, and
+the sanitizer reports no invalid access.
 """
 import bz2 as stdlib_bz2
 import hashlib
@@ -24,6 +31,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_rle1_cases
+from bzip2_tpu import rle1 as jrle1
 from bzip2_tpu_torch import rle1
 from bzip2_tpu_torch.native import build
 
@@ -99,3 +108,55 @@ def test_decoders_under_asan_at_every_batch_width(asan_lib, tmp_path,
     assert res == {"some": sha, "whole": sha, "status": 1,
                    "next_byte": len(comp), "consumed": len(comp),
                    "rc": [0, 0]}
+
+
+SPLIT_CHILD = r"""
+import json, sys
+repo, so = sys.argv[1:3]
+sys.path[:0] = [repo, repo + "/tests"]
+import numpy as np
+import torch_rle1_cases as cases
+from bzip2_tpu_torch import native, rle1
+native.ensure_built = lambda: so
+out = {}
+for group, items in cases.groups().items():
+    # a copy of its own exact size: a read past the input is past the
+    # allocation
+    out[group] = [cases.summary(rle1.encode_blocks(
+        np.frombuffer(data, np.uint8).copy(), level, nmax))
+        for data, level, nmax in items]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def no_avx2_lib(tmp_path_factory):
+    """The host runtime built with the port's flags but without AVX2."""
+    so = tmp_path_factory.mktemp("noavx2") / "libbz2tpu_host_noavx2.so"
+    r = _gxx(*build.FLAGS, "-mno-avx2", "-o", str(so))
+    assert r.returncode == 0, r.stderr[-2000:]
+    return so, None
+
+
+@pytest.mark.parametrize("which", ["asan", "no_avx2"])
+def test_split_wide_path_in_child_builds(which, request):
+    """The split's parity cases through the sanitizer build (AVX2 as
+    -march=native gives it) and the build without AVX2 give the
+    reference's blocks; the sanitizer reports nothing."""
+    so, rt = request.getfixturevalue(f"{which}_lib")
+    env = dict(os.environ)
+    if rt is not None:
+        env.update(LD_PRELOAD=rt,
+                   ASAN_OPTIONS="detect_leaks=0:abort_on_error=0")
+    r = subprocess.run([sys.executable, "-c", SPLIT_CHILD, str(REPO),
+                        str(so)], capture_output=True, text=True, env=env,
+                       timeout=TIMEOUT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "AddressSanitizer" not in r.stderr, r.stderr[-4000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    groups = torch_rle1_cases.groups()
+    assert sorted(got) == sorted(groups)
+    for group, items in groups.items():
+        exp = [torch_rle1_cases.summary(jrle1.encode_blocks(d, lv, nm))
+               for d, lv, nm in items]
+        assert got[group] == exp, group

@@ -326,6 +326,24 @@ def test_reader_split_span_ms_per_MiB():
     assert r.read(_probe([])) is None
 
 
+def test_reader_split_wide_pct():
+    r = _reader("split_wide_pct.compress")
+    spans = (_call(1, 10, 400, [("split", 1, 10, 40,
+                                 {"bytes": 2 ** 20, "wide_bytes": 2 ** 20})])
+             + _call(2, 500, 900, [("split", 1, 500, 520,
+                                    {"bytes": 2 ** 20,
+                                     "wide_bytes": 2 ** 19})])
+             # began before the window: not counted
+             + _call(3, -50, 5, [("split", 1, -50, -10,
+                                  {"bytes": 2 ** 20, "wide_bytes": 0})]))
+    assert r.read(_probe(spans)) == pytest.approx(75.0)
+    # a split without the wide path records no wide_bytes: nothing to read
+    assert r.read(_probe(_call(1, 10, 400, [("split", 1, 10, 40,
+                                              {"bytes": 2 ** 20})]))) is None
+    assert r.read(_probe(_call(1, 10, 20))) is None
+    assert r.read(_probe([])) is None
+
+
 def test_reader_heap_span_ms_per_MiB():
     r = _reader("heap_span_ms_per_MiB.compress")
     spans = _call(1, 10, 1200, [("heap", 2, 100, 103, {"rows": 78}),
@@ -397,18 +415,18 @@ def test_readers_start_empties_the_store():
 
 
 def test_every_per_layer_metric_has_a_reader():
-    """BENCHMARK.json's ten per-layer metrics, each found by name, and the
-    four program-span metrics in both compress cells."""
+    """BENCHMARK.json's eleven per-layer metrics, each found by name, and
+    the five program-span metrics in both compress cells."""
     from portbench import cells
     with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     names = [m["name"] for m in bench["per_layer"]]
-    assert len(names) == 10
+    assert len(names) == 11
     for n in names:
         assert callable(cells.reader(n, ROOT).read)
     spans = [m for m in bench["per_layer"] if m["source"] == "program_span"
              and m["name"] != "rows_per_batch.compress"]
-    assert len(spans) == 4
+    assert len(spans) == 5
     for m in spans:
         assert m["workloads"] == CELLS and m["moves"] == "compress_MBps"
 
