@@ -160,10 +160,11 @@ class _Plan:
         return None if self.counts is None else self.counts[stage]
 
     def fold(self) -> None:
-        """Add the launches the card counted in the plan's graphs; the
-        caller has synchronized the card."""
+        """Add the launches and rounds the card counted in the plan's
+        graphs; the caller has synchronized the card."""
         with _FOLD_LOCK:
             for lp, c in zip(self.loops, self.counts.tolist()):
+                _ROUNDS[lp.stage] += c[1] - lp.folded[1]
                 lp.fold(c)
 
     def free(self) -> None:
@@ -184,6 +185,10 @@ _PLANS: OrderedDict = OrderedDict()
 _PLANS_MAX = 8
 _PLANS_LOCK = threading.Lock()
 _FOLD_LOCK = threading.Lock()
+#: the doubling rounds the card ran in each stage (0 the full width, 1, 2,
+#: ... the compact tail stages) in every plan made so far, dropped ones
+#: included, as far as their counts are folded in (under _FOLD_LOCK)
+_ROUNDS = [0] * (len(_tail_ladder(1 << 20)) + 1)
 
 
 def _plan(B: int, N: int, dev) -> _Plan:
@@ -248,27 +253,46 @@ def _settle() -> None:
 _build.SETTLERS.append(_settle)
 
 
+def stage_rounds() -> list | None:
+    """The doubling rounds the card has run so far in each stage, stage 0
+    the full width and 1, 2, ... the compact tail stages, summed over
+    every ``bwt_batched`` call on a card (plans dropped since included).
+    Folds in the cached plans' counts first, which waits for the card once.
+    None without a card, where the loops run on the host and count
+    nothing."""
+    if not torch.cuda.is_available():
+        return None
+    _settle()
+    with _FOLD_LOCK:
+        return list(_ROUNDS)
+
+
 def bwt_batched(blocks: torch.Tensor, n: torch.Tensor):
     """blocks: uint8 (B, N); n: int32 (B,) true lengths (>= 1).
 
     Returns (last uint8 (B, N), orig_ptr int32 (B,), sa int32 (B, N)).
-    Pad positions of ``last`` are 0."""
+    Pad positions of ``last`` are 0.  The plan and the launches are the
+    span ``bwt`` {rows, width}; the round hook's read follows it."""
     B, N = blocks.shape
     if N > (1 << 20):
         raise ValueError("rank packing assumes block size <= 2^20")
     dev = blocks.device
     n = n.to(torch.int32)
-    plan = _plan(B, N, dev)
+    plan = None
     try:
-        if plan.B > B:          # dummy rows of one byte fill the plan
-            blocks = torch.cat([blocks, blocks.new_zeros((plan.B - B, N))])
-            n = torch.cat([n, n.new_ones(plan.B - B)])
-        last, orig_ptr, sa = _bwt(plan, blocks, n)
+        with tracing.span("bwt", None, rows=B, width=N):
+            plan = _plan(B, N, dev)
+            if plan.B > B:          # dummy rows of one byte fill the plan
+                blocks = torch.cat([blocks,
+                                    blocks.new_zeros((plan.B - B, N))])
+                n = torch.cat([n, n.new_ones(plan.B - B)])
+            last, orig_ptr, sa = _bwt(plan, blocks, n)
         if ROUND_HOOK is not None:      # a device read: waits for the card
             with tracing.span("round_hook", None):
                 _replay_rounds(plan.ctl, plan.rec, B)
     finally:
-        plan.lock.release()
+        if plan is not None:
+            plan.lock.release()
     return last[:B], orig_ptr[:B], sa[:B]
 
 

@@ -30,8 +30,10 @@ MB/s, window, busy and idle seconds, ``idle_by_leaf_s``,
 the window), the host's self seconds of each span name, the idle share
 under a ``batch`` span but no ``wait`` or ``heap`` span
 (``idle_launch_pct``, the benchmark's ``idle_launch_pct.compress``
-arithmetic), the ``wait`` spans' ms a MiB, and the ``bwt_plan`` and
-``bwt_graph`` spans of the warm-up (count, seconds).  On the CPU the
+arithmetic), the ``wait`` spans' ms a MiB, the ``bwt_plan`` and
+``bwt_graph`` spans of the warm-up (count, seconds), and the doubling
+rounds the card ran in the window by stage (``ops.bwt.stage_rounds``,
+read before and after the window; None on the CPU).  On the CPU the
 device figures are "not measured (cpu)".
 """
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ..bench import card_line, log, make_corpus, resolve_device
 #: the names that idle instants go to, first match wins; a span name not
 #: listed comes after them
 ORDER = ("split", "frame", "patch", "heap", "pack", "payloads", "host_block",
-         "bwt_plan", "bwt_graph", "stage_in", "lens_in", "pre",
+         "bwt_plan", "bwt_graph", "stage_in", "lens_in", "bwt", "pre",
          "pre_after_hook", "group_iter", "post", "round_hook", "wait",
          "batch", "encode", "compress")
 NO_SPAN = "no span below compress"
@@ -232,6 +234,7 @@ def main(argv=None) -> dict:
                 != bz2.compress(objects[0], args.level):
             raise SystemExit("span_idle: the warm-up call is not exact")
         warm = tracing.spans()
+        rounds0 = bwt.stage_rounds()
         with profile(activities=acts, experimental_config=(
                 _ExperimentalConfig(profile_all_threads=True))) as prof:
             if cuda:
@@ -240,6 +243,7 @@ def main(argv=None) -> dict:
             calls, nbytes, lo, hi = _loop(objects, args.level, args.seconds,
                                           kw)
             spans = tracing.spans()
+        rounds1 = bwt.stage_rounds()
     finally:
         tracing.enable_spans(False)
         bwt.ROUND_HOOK = None
@@ -259,7 +263,9 @@ def main(argv=None) -> dict:
                                  sum(s["t1_ns"] - s["t0_ns"] for s in warm
                                      if s["name"] == n) / 1e9]
                              for n in ("bwt_plan", "bwt_graph")},
-           "span_counts": counts}
+           "span_counts": counts,
+           "stage_rounds": (None if rounds0 is None else
+                            [b - a for a, b in zip(rounds0, rounds1)])}
     if cuda:
         busy = union([iv for iv in device_intervals(prof)
                       if iv[1] > lo and iv[0] < hi])

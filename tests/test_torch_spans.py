@@ -18,7 +18,8 @@ from bzip2_tpu_torch import native, tracing
 from bzip2_tpu_torch import engine as teng
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ["bzip2-9.compress-text", "bzip2-1.compress-text"]
+CELLS = ["bzip2-9.compress-text", "bzip2-1.compress-text",
+         "logrotate-9.compress-logs"]
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="the engine needs the native runtime")
 
@@ -102,7 +103,10 @@ def test_span_tree_of_a_hybrid_compress(three_blocks, monkeypatch):
         assert waits == ["n_in_use"] + ["freq"] * 4 + ["nbits", "words"]
         assert {s["tid"] for s in got} == {b["tid"]}
         (pre,) = [s for s in got if s["name"] == "pre"]
-        assert [s["name"] for s in kids.get(pre["id"], [])] == ["bwt_plan"]
+        (bwt,) = kids[pre["id"]]
+        assert (bwt["name"], bwt["rows"], bwt["width"]) == ("bwt", 1,
+                                                             100_352)
+        assert [s["name"] for s in kids.get(bwt["id"], [])] == ["bwt_plan"]
         assert all(s["rows"] == 6 for s in got if s["name"] == "heap")
         assert got[1]["bytes"] == 100_352 + 4 + 256 + 4     # stage_in
     # one call id for every span, worker threads' included
@@ -177,7 +181,8 @@ def test_spans_off_store_empty_and_records_unchanged(three_blocks,
 @needs_native
 def test_round_hook_read_is_a_span_inside_pre(three_blocks, monkeypatch):
     """With ``ops.bwt.ROUND_HOOK`` set, its device read is the span
-    ``round_hook``, the last child of the batch's ``pre``."""
+    ``round_hook``, the last child of the batch's ``pre``, after the
+    ``bwt`` span of the plan and the launches."""
     from bzip2_tpu_torch.ops import bwt
     data, expect = three_blocks
     seen = []
@@ -187,7 +192,10 @@ def test_round_hook_read_is_a_span_inside_pre(three_blocks, monkeypatch):
     assert eng.compress(data, 1) == expect
     kids = _children(tracing.spans())
     (pre,) = [s for s in tracing.spans() if s["name"] == "pre"]
-    assert [s["name"] for s in kids[pre["id"]]] == ["bwt_plan", "round_hook"]
+    assert [s["name"] for s in kids[pre["id"]]] == ["bwt", "round_hook"]
+    bwt_span = kids[pre["id"]][0]
+    assert (bwt_span["rows"], bwt_span["width"]) == (3, 100_352)
+    assert [s["name"] for s in kids[bwt_span["id"]]] == ["bwt_plan"]
     assert seen
 
 
@@ -383,10 +391,122 @@ def test_reader_idle_launch_pct():
     assert r.read(_probe(_call(1, 10, 20), dev)) is None
 
 
+def _stage_rounds_of(monkeypatch, *readings):
+    """``ops.bwt.stage_rounds`` replaced by one that returns ``readings``
+    in turn."""
+    from bzip2_tpu_torch.ops import bwt
+    it = iter(readings)
+    monkeypatch.setattr(bwt, "stage_rounds", lambda: next(it))
+
+
+def test_reader_bwt_full_rounds_per_call(monkeypatch):
+    r = _reader("bwt_full_rounds_per_call.compress")
+    shape = {"rows": 13, "width": 900_000}
+    spans = (_call(1, 10, 400, [("bwt", 2, 100, 150, shape),
+                                ("bwt", 3, 120, 170, shape)])
+             + _call(2, 500, 1100, [("bwt", 2, 1050, 1090, shape)])
+             # began before the window: not counted
+             + _call(3, -50, 5, [("bwt", 2, -40, -10, shape)]))
+    _stage_rounds_of(monkeypatch, [10, 5, 0, 7, 0, 1],
+                     [16, 9, 0, 12, 0, 2])
+    p = _probe(spans)
+    r.start(p)
+    assert r.read(p) == pytest.approx(2.0)
+    # no bwt span, or no counter on either side: nothing to read
+    for readings, got in (([0] * 6, [3] * 6), (None, None)):
+        _stage_rounds_of(monkeypatch, readings, got)
+        p = _probe(_call(1, 10, 400, [("split", 1, 10, 40,
+                                       {"bytes": 1})]))
+        r.start(p)
+        assert r.read(p) is None
+    _stage_rounds_of(monkeypatch, None, None)
+    p = _probe(spans)
+    r.start(p)
+    assert r.read(p) is None
+
+
+def test_reader_bwt_full_rounds_without_stage_rounds(monkeypatch):
+    """Against a program with no ``stage_rounds`` (the tree before it),
+    the reader starts and reads None without raising, spans or not."""
+    from bzip2_tpu_torch.ops import bwt
+    r = _reader("bwt_full_rounds_per_call.compress")
+    monkeypatch.delattr(bwt, "stage_rounds")
+    p = _probe(_call(1, 10, 400, [("bwt", 2, 100, 150, {})]))
+    r.install(p)
+    r.start(p)
+    assert r.read(p) is None
+
+
+def _bwt_trace(ranges, kernels, mib=2.0):
+    """A probe of ``pb.bwt`` ranges (tid, t0, t1) and device events
+    (launching tid, launch time, device start, device end[, name]), times
+    in ms; an event's tid None: launched under no CPU op (link 0)."""
+    from portbench import trace
+    p = trace.Probe()
+    p.window_ns = (0, 1000 * MS)
+    p.mib_started = mib
+    p.counters["ranges"] = [("pb.bwt", tid, a * MS, b * MS)
+                            for tid, a, b in ranges]
+    for i, (tid, t, a, b, *name) in enumerate(kernels, 1):
+        if tid is not None:
+            p.cpu_ops[i] = (tid, t * MS)
+        p.kernel_links.append((i if tid is not None else 0, a * MS, b * MS))
+        p.device.append((name[0] if name else "k", a * MS, b * MS))
+    return p
+
+
+#: a kernel of a stage's WHILE body, as the profiler names it
+BODY = "(anonymous namespace)::full_keys_kernel(int const*, int const*)"
+
+
+def test_reader_bwt_device_ms_per_MiB():
+    r = _reader("bwt_device_ms_per_MiB.compress")
+    # tid 2's second range is the warm-up's; tid 3's last began after the
+    # window closed, in a call begun inside it: counted
+    ranges = [(2, 100, 150), (2, -20, -5), (3, 990, 1020), (3, 1030, 1040)]
+    kernels = [(2, 110, 120, 130),      # counted: 10 ms
+               (2, -10, -8, -2),        # the warm-up's
+               (3, 1000, 1000, 1004),   # counted: 4 ms
+               (3, 1035, 1036, 1037),   # counted: 1 ms
+               (2, 160, 170, 200),      # outside every range
+               (4, 110, 110, 140),      # another thread
+               # a graph body's kernel, tied to no launch: counted by name
+               (None, 0, 300, 302, BODY),
+               (None, 0, -30, -25, BODY),   # the warm-up's
+               # the MTF's rank kernel, tied to no launch: not the BWT's
+               (None, 0, 400, 450,
+                "void (anonymous namespace)::rank_kernel<4>(int const*)")]
+    assert r.read(_bwt_trace(ranges, kernels)) == pytest.approx(8.5)
+    assert r.read(_bwt_trace(ranges, kernels, mib=0.0)) is None
+    assert r.read(_bwt_trace([], kernels)) is None
+    assert r.read(_bwt_trace(ranges, [])) is None
+    assert {bool(r.OWN.search(n)) for n in (
+        "(anonymous namespace)::gate_kernel((anonymous namespace)::LoopT",
+        "void (anonymous namespace)::rerank_scan_kernel<true>(void const*",
+        "(anonymous namespace)::sort_merge_kernel(unsigned long const*",
+        "(anonymous namespace)::tail_rerank_kernel(int const*, int const*")
+    } == {True}
+
+
+def test_reader_bwt_device_wraps_bwt_batched_in_a_range(monkeypatch):
+    """``install`` runs the engine's ``bwt_batched`` inside the profiler
+    range ``pb.bwt`` and returns what it returns."""
+    from torch.profiler import ProfilerActivity, profile
+    from portbench import trace
+    monkeypatch.setattr(teng, "bwt_batched",
+                        lambda blocks, n: (torch.arange(4) * 2).sum())
+    _reader("bwt_device_ms_per_MiB.compress").install(trace.Probe())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert int(teng.bwt_batched(None, None)) == 12
+    assert "pb.bwt" in {e.name() for e in
+                        prof.profiler.kineto_results.events()}
+
+
 @pytest.mark.parametrize("name", ["split_span_ms_per_MiB.compress",
                                   "heap_span_ms_per_MiB.compress",
                                   "batch_wait_ms_per_MiB.compress",
-                                  "idle_launch_pct.compress"])
+                                  "idle_launch_pct.compress",
+                                  "bwt_full_rounds_per_call.compress"])
 def test_reader_without_program_spans(name, monkeypatch):
     """Against a program with no span store (the tree before it), the
     reader installs, starts and reads None without raising."""
@@ -415,13 +535,13 @@ def test_readers_start_empties_the_store():
 
 
 def test_every_per_layer_metric_has_a_reader():
-    """BENCHMARK.json's eleven per-layer metrics, each found by name, and
-    the five program-span metrics in both compress cells."""
+    """BENCHMARK.json's thirteen per-layer metrics, each found by name,
+    and the five program-span metrics in the three compress cells."""
     from portbench import cells
     with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     names = [m["name"] for m in bench["per_layer"]]
-    assert len(names) == 11
+    assert len(names) == 13
     for n in names:
         assert callable(cells.reader(n, ROOT).read)
     spans = [m for m in bench["per_layer"] if m["source"] == "program_span"
@@ -468,6 +588,18 @@ def test_span_idle_names_idle_by_leaf():
     assert sum(named.values()) - named[t.NO_SPAN] == pytest.approx(0.074)
     assert got["idle_outside_spans_pct"] == pytest.approx(10.0)
     assert got["gaps_over_1ms"] == [[10.0, "encode", None]]
+
+
+def test_span_idle_names_idle_under_the_bwt_first():
+    """Idle under one worker's ``bwt`` and another's ``pre`` self time
+    goes to ``bwt``, which comes first in ORDER."""
+    t = _tool()
+    assert t.ORDER.index("bwt") < t.ORDER.index("pre")
+    spans = [_sp(1, "pre", None, 2, 0, 30), _sp(2, "bwt", 1, 2, 0, 20),
+             _sp(3, "pre", None, 3, 10, 40)]
+    got = dict(t.idle_by_span(spans, [], 0, 40 * MS)["idle_by_leaf_s"])
+    assert got["bwt"] == pytest.approx(0.020)
+    assert got["pre"] == pytest.approx(0.020)
 
 
 def test_span_idle_self_times_without_a_hook():
